@@ -13,7 +13,7 @@ def test_port_sim_with_noise_short():
     """Noisy IMU with the matched noise prior, noise-free pixels — the
     setup of tests/test_e2e_sim.py::test_sim_with_noise_short."""
     data = sim.generate(noise=True, pixel_noise=0.0)
-    est, traj = runner.run_sim(data, n_frames=150)
+    est, traj = runner.run_sim(data, n_frames=150, device="cpu")
     assert est.initialized
     assert est.failure_count == 0
     gt_p, _ = runner.sim_ground_truth_at(data, traj["t"])

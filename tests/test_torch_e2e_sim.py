@@ -45,7 +45,7 @@ def clean_data():
 
 @pytest.fixture(scope="module")
 def port_run(clean_data):
-    return runner.run_sim(clean_data, n_frames=150)
+    return runner.run_sim(clean_data, n_frames=150, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -79,7 +79,8 @@ def test_frame_step_matches_jax(jax_run, case):
     count is exact; states, prior terms and the marg blocks agree to
     round-off relative to each array's largest entry (rtol 1e-7)."""
     args, kwargs, ref = jax_run[2][case]
-    out = tframe_step.fetch(tframe_step.frame_step(*args, **kwargs))
+    out = tframe_step.fetch(tframe_step.frame_step(
+        *args, **kwargs, device="cpu", dtype=torch.float64))
     assert out.iterations == int(ref.iterations)
     pairs = list(zip(out.states, ref.states)) + [
         (getattr(out, k), getattr(ref, k)) for k in

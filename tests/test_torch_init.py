@@ -44,6 +44,7 @@ def _scene(seed=0, n_pts=40, n_frames=4):
 
 
 T = torch.from_numpy
+CPU64 = dict(device="cpu", dtype=torch.float64)
 
 
 def test_triangulate_dlt_matches_jax():
@@ -82,13 +83,13 @@ def test_solve_relative_rt_matches_jax():
     pts, Rs, ts, obs = _scene(n_frames=2)
     valid = np.ones(len(pts), bool)
     okj, Rj, tj = jsfm.solve_relative_rt(obs[0], obs[1], valid)
-    okt, Rt, tt = tsfm.solve_relative_rt(obs[0], obs[1], valid)
+    okt, Rt, tt = tsfm.solve_relative_rt(obs[0], obs[1], valid, **CPU64)
     assert okj and okt
     np.testing.assert_allclose(Rt, Rj, rtol=0, atol=1e-7)
     np.testing.assert_allclose(tt / np.linalg.norm(tt), tj / np.linalg.norm(tj),
                                rtol=0, atol=1e-7)
     np.testing.assert_allclose(Rt, Rs[0] @ Rs[1].T, rtol=0, atol=1e-6)
-    Rrel = tsfm.relative_rotation(obs[0], obs[1])
+    Rrel = tsfm.relative_rotation(obs[0], obs[1], **CPU64)
     np.testing.assert_allclose(Rrel, jsfm.relative_rotation(obs[0], obs[1]),
                                rtol=0, atol=1e-7)
 
@@ -101,7 +102,7 @@ def test_construct_matches_jax():
     R_rel = Rs[l] @ Rs[K - 1].T
     t_rel = ts[l] - R_rel @ ts[K - 1]
     okj, Rsj, tsj, Xj, trij = jsfm.construct(obs, valid, l, R_rel, t_rel)
-    okt, Rst, tst, Xt, trit = tsfm.construct(obs, valid, l, R_rel, t_rel)
+    okt, Rst, tst, Xt, trit = tsfm.construct(obs, valid, l, R_rel, t_rel, **CPU64)
     assert okj and okt
     np.testing.assert_array_equal(trit, trij)
     np.testing.assert_allclose(Rst, Rsj, rtol=0, atol=1e-8)

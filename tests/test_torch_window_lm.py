@@ -28,6 +28,7 @@ from vio_tpu_torch.solver import marginalize as tmarg
 from vio_tpu_torch.solver import window as tW
 
 torch.set_num_threads(1)
+CPU64 = dict(device="cpu", dtype=torch.float64)
 
 NORMAL_FIELDS = ("Hpp", "bp", "Hpm", "Hmm", "bm", "chi2")
 
@@ -43,8 +44,8 @@ def _as_dict(nt):
 def problem():
     states, f, _ = testing.make_window_problem(
         window_size=10, max_features=64, imu_per_interval=8, dtype=jnp.float64)
-    ts = convert.window_states_from_numpy(_as_dict(states))
-    tf = convert.window_factors_from_numpy(_as_dict(f))
+    ts = convert.window_states_from_numpy(_as_dict(states), **CPU64)
+    tf = convert.window_factors_from_numpy(_as_dict(f), **CPU64)
     return states, f, ts, tf
 
 
@@ -145,4 +146,4 @@ def test_convert_round_trip(problem):
     assert dataclasses.asdict(convert.config_from_dict(dataclasses.asdict(cfg))) == \
         dataclasses.asdict(cfg)
     with pytest.raises(KeyError):
-        convert.window_states_from_numpy({"Ps": np.zeros((2, 3))})
+        convert.window_states_from_numpy({"Ps": np.zeros((2, 3))}, **CPU64)

@@ -1,7 +1,9 @@
 """vio_tpu_torch: the PyTorch/CUDA port of vio_tpu.
 
 Same module layout and function names as ``vio_tpu``; plain functions on
-tensors, with an explicit device and dtype.  The one TPU kernel on the
+tensors, with an explicit device and dtype.  The entry points
+(``runner.run_sim``, ``Estimator``) run on the CUDA device unless the
+caller passes ``device="cpu"`` (``device.resolve``).  The one TPU kernel on the
 simulation main path (the Gauss-Jordan SPD solve) is a hand-written CUDA
 kernel here (``csrc/gj_solve.cu``, wrapper ``ops.linsolve.gj_solve``),
 built with nvcc at first use on a CUDA tensor.  Importing the package

@@ -18,7 +18,7 @@ from .factors import ImuFactorTerms
 from .solver.window import WindowFactors, WindowStates
 
 
-def to_tensor(x, device="cpu", dtype=torch.float64) -> torch.Tensor:
+def to_tensor(x, device, dtype) -> torch.Tensor:
     """A host array as a tensor on ``device``: floats take ``dtype``,
     integers become int64 indices, booleans stay boolean."""
     a = np.array(x)   # a writable copy: JAX's buffers come back read-only
@@ -38,14 +38,12 @@ def _from_dict(cls, d: dict, device, dtype, nested=None):
                   else to_tensor(v, device, dtype) for k, v in d.items()})
 
 
-def window_states_from_numpy(d: dict, device="cpu",
-                             dtype=torch.float64) -> WindowStates:
+def window_states_from_numpy(d: dict, *, device, dtype) -> WindowStates:
     """WindowStates from numpy arrays keyed by its field names."""
     return _from_dict(WindowStates, d, device, dtype)
 
 
-def window_factors_from_numpy(d: dict, device="cpu",
-                              dtype=torch.float64) -> WindowFactors:
+def window_factors_from_numpy(d: dict, *, device, dtype) -> WindowFactors:
     """WindowFactors from numpy arrays keyed by its field names; the
     ``imu_terms`` entry is a dict keyed by ImuFactorTerms' fields."""
     terms = lambda t: _from_dict(ImuFactorTerms, t, device, dtype)  # noqa: E731

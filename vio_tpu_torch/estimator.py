@@ -21,6 +21,7 @@ import torch
 
 from . import imu
 from .config import VioConfig
+from .device import resolve
 from .feature_manager import FeatureManager
 from .init import alignment, sfm
 from .init.ex_rotation import ExtrinsicRotationCalibrator
@@ -186,15 +187,14 @@ def _pad_buffer(buf: IntervalBuffer | None, M: int):
 class Estimator:
     """The sliding-window VIO core (reference estimator.{h,cpp})."""
 
-    def __init__(self, cfg: VioConfig, device="cpu", dtype=None):
+    def __init__(self, cfg: VioConfig, device=None, dtype=None):
         """device/dtype: where and in what precision the device work runs.
-        dtype defaults to float64 on the CPU (the JAX tests' x64 regime)
-        and float32 on CUDA (the TPU's regime)."""
+        device defaults to the CUDA device and raises without one; pass
+        ``device="cpu"`` to run on the CPU.  dtype defaults to float32 on
+        CUDA (the TPU's regime) and float64 on the CPU (the JAX tests' x64
+        regime)."""
         self.cfg = cfg
-        self.device = torch.device(device)
-        if dtype is None:
-            dtype = torch.float32 if self.device.type == "cuda" else torch.float64
-        self.dtype = dtype
+        self.device, self.dtype = resolve(device, dtype)
         self.W = cfg.window_size
         self.W1 = cfg.window_size + 1
         self.P = cfg.num_pose_params

@@ -212,7 +212,7 @@ def recover_pose(E, x0, x1, mask):
 
 
 def relative_rotation(x0, x1, seed=0, thresh=0.3 / 460.0,
-                      device="cpu", dtype=torch.float64):
+                      *, device, dtype):
     """Relative camera rotation R with x_0 ≈ R x_1 from ≥9 normalized
     correspondences — the extrinsic calibrator's per-pair input
     (solveRelativeR, initial_ex_rotation.cpp:68-110).  No inlier/parallax
@@ -238,7 +238,7 @@ def relative_rotation(x0, x1, seed=0, thresh=0.3 / 460.0,
 
 
 def solve_relative_rt(x0, x1, valid, seed=0, thresh=0.3 / 460.0,
-                      device="cpu", dtype=torch.float64):
+                      *, device, dtype):
     """Full relative-pose solve (solveRelativeRT, solve_5pts.cpp:193-230).
 
     Returns (ok, R_01, t_01) where (R_01, t_01) is the pose of camera 1
@@ -265,7 +265,7 @@ def solve_relative_rt(x0, x1, valid, seed=0, thresh=0.3 / 460.0,
 # ---------------------------------------------------------------------------
 
 def construct(obs, valid, l, R_init, t_init, seed=0,
-              device="cpu", dtype=torch.float64):
+              *, device, dtype):
     """Incremental SfM over K frames.
 
     obs (K, F, 2) normalized observations, valid (K, F) mask, l = anchor
@@ -353,7 +353,7 @@ def construct(obs, valid, l, R_init, t_init, seed=0,
     return True, Rs, ts, X, tri
 
 
-def _sfm_ba(obs, use, l, Rs, ts, X, tri, device="cpu", dtype=torch.float64):
+def _sfm_ba(obs, use, l, Rs, ts, X, tri, *, device, dtype):
     """Windowed BA: quaternion poses + XYZ points, dense LM.  The Jacobian
     is forward-mode autodiff (``torch.func.jacfwd``), as the JAX package
     uses ``jax.jacfwd``."""

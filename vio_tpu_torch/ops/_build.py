@@ -82,8 +82,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, vp, ci, vp]
         fn.restype = ci
-    lib.gj_solve_in_shared.argtypes = [ci, ci]
-    lib.gj_solve_in_shared.restype = ci
+    lib.gj_solve_work_elems.argtypes = [ci, ci]
+    lib.gj_solve_work_elems.restype = ctypes.c_longlong
     lib.gj_solve_error_string.argtypes = [ci]
     lib.gj_solve_error_string.restype = ctypes.c_char_p
     return lib

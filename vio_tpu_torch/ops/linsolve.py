@@ -6,6 +6,12 @@ becomes ``csrc/gj_solve.cu`` (see the note there), called through
 torch.  ``spd_solve`` sends a CUDA tensor to the kernel and a CPU tensor
 to the plain version; it never falls back from one to the other.
 
+The kernel has two regimes, chosen by size: the system in one block's
+registers (float32 P ≤ 176, float64 P ≤ 127), else a blocked elimination
+in panels of 32 pivots over many blocks.  ``gj_solve_reference`` follows
+the same rule, so that where kernel and plain version are compared they
+do the same arithmetic in the same order.
+
 Gauss-Jordan without pivoting is safe because every system solved here is
 SPD by construction (JᵀWJ + λI with λ ≥ 1e-5·max|diag|, problem.cc:434-436).
 The TPU kernel's padding of A to a multiple of 128 and of b to 128 lanes
@@ -19,21 +25,56 @@ import torch
 
 from . import _build
 
+# Largest P the kernel keeps in registers, by element size (gj_solve.cu's
+# kRegMaxP), and its panel width above that (kNB).
+REGISTER_MAX_P = {torch.float32: 176, torch.float64: 127}
+PANEL = 32
 
-def gj_solve_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Gauss-Jordan elimination without pivoting on [A | b] → x (P,),
-    in the order of the TPU kernel (linsolve.py:47-61): scale row k by the
-    pivot's reciprocal, then subtract column k × row k from every other
-    row.  Columns left of k never feed the b column again, so each step
-    updates columns k..P only, as the CUDA kernel does."""
+
+def _eliminate(S: torch.Tensor) -> None:
+    """Gauss-Jordan without pivoting, in place, on the rows of S (r, w)
+    whose pivots are its first r diagonal entries, in the order of the TPU
+    kernel (linsolve.py:47-61): scale row k by the pivot's reciprocal,
+    then subtract column k × row k from every other row.  Columns left of
+    k never feed the columns right of it again, so each step updates
+    columns k.. only, as the CUDA kernel does."""
+    for k in range(S.shape[0]):
+        rowk = S[k, k:] * (1.0 / S[k, k])
+        c = S[:, k].clone()
+        S[:, k:].addr_(c, rowk, alpha=-1)   # row k too; overwritten next
+        S[k, k:] = rowk
+
+
+def gj_solve_unblocked_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel's register regime: one elimination
+    over the whole of [A | b] → x (P,)."""
+    M = torch.cat([A, b[:, None]], dim=1)
+    _eliminate(M)
+    return M[:, -1]
+
+
+def gj_solve_blocked_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel's blocked regime: for each panel of
+    PANEL pivots, eliminate inside the panel's rows, then subtract
+    (the other rows' panel columns) × (the normalised panel rows) from
+    the columns right of the panel."""
     P = A.shape[0]
     M = torch.cat([A, b[:, None]], dim=1)
-    for k in range(P):
-        rowk = M[k, k:] * (1.0 / M[k, k])
-        c = M[:, k].clone()
-        M[:, k:].addr_(c, rowk, alpha=-1)   # row k too; overwritten next
-        M[k, k:] = rowk
-    return M[:, P]
+    for kb in range(0, P, PANEL):
+        ke = min(kb + PANEL, P)
+        _eliminate(M[kb:ke, kb:])
+        R = M[kb:ke, ke:]
+        M[:kb, ke:] -= M[:kb, kb:ke] @ R
+        M[ke:, ke:] -= M[ke:, kb:ke] @ R
+    return M[:, -1]
+
+
+def gj_solve_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain torch version: the unblocked elimination where
+    the kernel runs in registers, the blocked one above that."""
+    if A.shape[0] <= REGISTER_MAX_P[A.dtype]:
+        return gj_solve_unblocked_reference(A, b)
+    return gj_solve_blocked_reference(A, b)
 
 
 def gj_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -46,18 +87,20 @@ def gj_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if A.dtype != b.dtype or A.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"gj_solve takes float32 or float64, got {A.dtype}/{b.dtype}")
     P = A.shape[0]
-    if A.shape != (P, P) or b.shape != (P,) or P < 1:
+    if A.shape != (P, P) or b.shape != (P,) or not 1 <= P <= 1024:
         raise ValueError(f"gj_solve shapes: A {tuple(A.shape)}, b {tuple(b.shape)}")
     A = A.contiguous()
     b = b.contiguous()
     lib = _build.load()
     x = torch.empty_like(b)
-    work = torch.empty((P, P + 1), dtype=A.dtype, device=A.device)
+    n_work = lib.gj_solve_work_elems(P, A.element_size())
+    work = (torch.empty(n_work, dtype=A.dtype, device=A.device)
+            if n_work else None)      # the blocked regime's working copy
     fn = lib.gj_solve_f32 if A.dtype == torch.float32 else lib.gj_solve_f64
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), work.data_ptr(), P,
-                ctypes.c_void_p(stream))
+        rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(),
+                work.data_ptr() if n_work else None, P, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"gj_solve launch failed: CUDA error {rc} "
                            f"({lib.gj_solve_error_string(rc).decode()})")
@@ -72,8 +115,10 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve the SPD system ``A x = b`` (A: (P, P), b: (P,)).
 
     P ≤ 1024: the Gauss-Jordan kernel on a CUDA tensor, its plain torch
-    version on a CPU tensor.  Larger systems go to Jacobi-PCG
-    (solver/pcg.py), as in the JAX package."""
+    version on a CPU tensor — the unblocked one at every size and type, so
+    that a CPU result does not depend on where the card's kernel changes
+    regime.  Larger systems go to Jacobi-PCG (solver/pcg.py), as in the
+    JAX package."""
     P = A.shape[0]
     if P > 1024:
         from ..solver.pcg import pcg_solve
@@ -81,4 +126,4 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return x
     if A.is_cuda:
         return gj_solve(A, b)
-    return gj_solve_reference(A, b)
+    return gj_solve_unblocked_reference(A, b)

@@ -37,11 +37,13 @@ def feed_interval(est: Estimator, imu_t, acc, gyr, t_prev, t_img, i0):
 
 
 def run_sim(data, cfg: VioConfig | None = None, n_frames: int | None = None,
-            progress=False, on_frame=None, device="cpu", dtype=None):
+            progress=False, on_frame=None, device=None, dtype=None):
     """Run the estimator over a SimData dataset via the tracker-bypass
     path (landmark ids are feature ids; velocities zero like
     System.cpp:144-146).  ``device``/``dtype`` place the estimator's
-    device work (dtype defaults to float64 on the CPU, float32 on CUDA).
+    device work: the CUDA device unless the caller passes ``device="cpu"``
+    (``device.resolve``); dtype defaults to float32 on CUDA, float64 on
+    the CPU.
     Returns (est, traj dict)."""
     if cfg is None:
         from .config import sim_config

@@ -69,7 +69,7 @@ def frame_step(states: W.WindowStates,
                max_iter: int = 10, fix_ext: bool = True,
                loss_delta: float = 1.0, n_obs: int | None = None,
                marg_old: bool = True, exact_noise: bool = True,
-               device="cpu", dtype=torch.float64) -> FrameOut:
+               *, device, dtype) -> FrameOut:
     """One full estimator frame.  ``states`` and every array argument are
     raw host data (numpy): one upload, one device call, one fetch."""
     up = lambda x: to_tensor(x, device, dtype)   # noqa: E731
