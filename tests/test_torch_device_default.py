@@ -8,9 +8,12 @@ import pytest
 import torch
 
 from vio_tpu_torch import convert, runner, sim
-from vio_tpu_torch.config import sim_config
+from vio_tpu_torch.camera import PinholeCamera
+from vio_tpu_torch.config import sim_config, sim_images_config
 from vio_tpu_torch.device import resolve
 from vio_tpu_torch.estimator import Estimator
+from vio_tpu_torch.features import clahe, detect, klt, pyramid
+from vio_tpu_torch.features.tracker import FeatureTracker
 from vio_tpu_torch.init import sfm
 from vio_tpu_torch.solver import frame_step
 
@@ -50,6 +53,46 @@ def test_explicit_cpu_runs(no_card, data):
     assert len(traj["initialized"]) == 4
 
 
+def _no_frame(*args, **kwargs):
+    raise AssertionError("a frame was processed without a device")
+
+
+def test_tracker_without_device_raises_without_a_card(no_card):
+    cam = PinholeCamera(fx=460.0, fy=460.0, cx=255.0, cy=255.0)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        FeatureTracker(cam)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        runner.make_tracker(sim_images_config())
+
+
+def test_run_images_without_device_raises_without_a_card(no_card, data, monkeypatch):
+    """It raises before any frame is rendered, tracked or solved."""
+    monkeypatch.setattr(Estimator, "process_image", _no_frame)
+    monkeypatch.setattr(FeatureTracker, "read_image", _no_frame)
+    monkeypatch.setattr(sim, "render_image", _no_frame)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        runner.run_images(runner.sim_image_frames(data, n_frames=5),
+                          data.imu_t, data.acc, data.gyr, sim_images_config())
+
+
+def test_image_path_runs_on_an_explicit_cpu(no_card, data):
+    """device="cpu": float32 images, float64 positions and estimator; a
+    caller's dtype reaches both."""
+    small = dict(height=160, width=160)
+    cfg = sim_images_config(image_width=160, image_height=160, min_dist=8)
+    est, traj = runner.run_images(
+        runner.sim_image_frames(data, n_frames=5, **small),
+        data.imu_t, data.acc, data.gyr, cfg, device="cpu")
+    assert est.device.type == "cpu" and est.dtype == torch.float64
+    assert len(traj["initialized"]) == 2
+    trk = runner.make_tracker(cfg, device="cpu")
+    assert trk.device.type == "cpu" and trk.dtype == torch.float64
+    trk.read_image(sim.render_image(data, 0, **small), 0.0)
+    assert trk.prev_img.dtype == torch.float32 and trk.prev_img.device.type == "cpu"
+    trk32 = runner.make_tracker(cfg, device="cpu", dtype=torch.float32)
+    assert trk32.dtype == torch.float32
+
+
 @pytest.mark.parametrize("device,dtype,expect", [
     ("cpu", None, torch.float64), ("cuda:0", None, torch.float32),
     ("cpu", torch.float32, torch.float32), ("cuda:0", torch.float64, torch.float64)])
@@ -66,3 +109,30 @@ def test_inner_functions_keep_no_device_default(fn):
     params = inspect.signature(fn).parameters
     assert params["device"].default is inspect.Parameter.empty
     assert params["dtype"].default is inspect.Parameter.empty
+
+
+@pytest.mark.parametrize("fn", [
+    pyramid.build_pyramid, pyramid.downsample2, pyramid.scharr_gradients,
+    pyramid.central_gradients, pyramid.bilinear_sample, pyramid.patch_sample,
+    pyramid.patch_sample_multi, klt.track, klt.track_fb, klt.sample_templates,
+    klt.refine_on_templates, klt._patch_grid, klt._gauss_weights,
+    detect.shi_tomasi_response, detect.detect, detect.occupancy_from_points,
+    clahe.clahe, PinholeCamera.lift, PinholeCamera.project],
+    ids=lambda f: f.__qualname__)
+def test_frontend_functions_take_the_device_from_their_inputs(fn):
+    """No frontend function below the entry points has a device or dtype
+    to default: it works where its tensors are.  The two helpers that make
+    a tensor from nothing are told both, with no default."""
+    params = inspect.signature(fn).parameters
+    for name in ("device", "dtype"):
+        if name in params:
+            assert params[name].default is inspect.Parameter.empty
+    assert not {"device", "dtype"} & set(params) or fn in (klt._patch_grid, klt._gauss_weights)
+
+
+@pytest.mark.parametrize("entry", [FeatureTracker.__init__, runner.make_tracker,
+                                   runner.run_images, runner.run_sim, Estimator.__init__],
+                         ids=lambda f: f.__qualname__)
+def test_entry_points_default_to_the_card(entry):
+    params = inspect.signature(entry).parameters
+    assert params["device"].default is None and params["dtype"].default is None

@@ -13,9 +13,13 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = [
-    "vio_tpu_torch", "vio_tpu_torch.config", "vio_tpu_torch.convert",
+    "vio_tpu_torch", "vio_tpu_torch.camera", "vio_tpu_torch.config",
+    "vio_tpu_torch.convert", "vio_tpu_torch.device",
     "vio_tpu_torch.estimator", "vio_tpu_torch.factors",
-    "vio_tpu_torch.feature_manager", "vio_tpu_torch.imu",
+    "vio_tpu_torch.feature_manager", "vio_tpu_torch.features",
+    "vio_tpu_torch.features.clahe", "vio_tpu_torch.features.detect",
+    "vio_tpu_torch.features.klt", "vio_tpu_torch.features.pyramid",
+    "vio_tpu_torch.features.tracker", "vio_tpu_torch.imu",
     "vio_tpu_torch.metrics", "vio_tpu_torch.runner", "vio_tpu_torch.sim",
     "vio_tpu_torch.init.alignment", "vio_tpu_torch.init.ex_rotation",
     "vio_tpu_torch.init.sfm", "vio_tpu_torch.ops._build",
@@ -38,6 +42,23 @@ print(json.dumps(dict(
     tf32=[torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
     built=_build.LIB.exists() and not before)))
 """
+
+
+def test_module_list_is_complete():
+    """Every module of the package is in MODULES, so a new one cannot
+    escape the probe."""
+    pkg = os.path.join(ROOT, "vio_tpu_torch")
+    found = set()
+    for base, _, files in os.walk(pkg):
+        if os.path.basename(base) in ("__pycache__", "_build"):
+            continue
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(base, f), ROOT)[:-3]
+                found.add(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    empty_inits = {"vio_tpu_torch.init", "vio_tpu_torch.ops",
+                   "vio_tpu_torch.solver", "vio_tpu_torch.utils"}
+    assert found - empty_inits == set(MODULES)
 
 
 def test_port_imports_no_jax_and_builds_nothing():

@@ -7,8 +7,8 @@ Same constants, so accuracy numbers are directly comparable with the
 reference's published APE (BASELINE.md row 1-4).
 
 Everything is computed in one vectorized numpy shot over the full time
-grid, in float64.  The image renderers (``render_*``) wait for the image
-frontend's port.
+grid, in float64.  ``render_blobs``/``render_image`` draw the frames the
+image frontend is exercised on.
 """
 from __future__ import annotations
 
@@ -228,3 +228,67 @@ def generate(noise: bool = False,
         imu_v=np.asarray(cam["v_wb"]),
         landmarks=pts, obs_xy=xy, obs_uv=uv, obs_valid=valid,
     )
+
+
+def render_blobs(uvs, height: int = 640, width: int = 640,
+                 sigma: float = 1.8, amplitude: float = 200.0,
+                 background: float = 12.0, ring_ids=None) -> np.ndarray:
+    """Render a grayscale image with a sub-pixel-accurate Gaussian blob at
+    each (u, v) in ``uvs`` — the synthetic-image primitive behind
+    render_image, also used directly by stereo/flow tests.
+
+    ring_ids (optional, len(uvs)): per-blob landmark ids.  When given,
+    each blob additionally carries a WEAK, WIDE radial-sinusoid
+    fingerprint whose frequency/phase are seeded by the id — distinctive
+    appearance for descriptor matching (real loop closing needs
+    tell-apart-able texture; identical Gaussians defeat any descriptor).
+    The fingerprint is a function of |pixel − center| only (invariant to
+    in-plane viewpoint rotation), its rings are edge-like (low Shi-Tomasi
+    response, so the detector still locks onto the sharp center peak),
+    and it translates rigidly with the center, keeping the tracked corner
+    a geometrically consistent projection."""
+    img = np.full((height, width), background, np.float32)
+    ring_sigma = 5.0
+    r = int(np.ceil(3 * (max(sigma, ring_sigma) if ring_ids is not None
+                         else sigma)))
+    uvs = np.asarray(uvs, np.float64)
+    for n, (u, v) in enumerate(uvs):
+        x0 = int(np.floor(u)) - r
+        y0 = int(np.floor(v)) - r
+        xs = np.arange(x0, x0 + 2 * r + 1)
+        ys = np.arange(y0, y0 + 2 * r + 1)
+        gx = np.exp(-((xs - u) ** 2) / (2 * sigma * sigma))
+        gy = np.exp(-((ys - v) ** 2) / (2 * sigma * sigma))
+        patch = amplitude * gy[:, None] * gx[None, :]
+        if ring_ids is not None:
+            rng = np.random.default_rng(99000 + int(ring_ids[n]))
+            om = rng.uniform(0.7, 2.3)
+            ph = rng.uniform(0.0, 2.0 * np.pi)
+            rr = np.hypot((xs - u)[None, :], (ys - v)[:, None])
+            env = np.exp(-rr * rr / (2.0 * ring_sigma * ring_sigma))
+            # inner cutoff: the fingerprint vanishes within ~3 px so the
+            # sharp center peak stays the unique Shi-Tomasi maximum (a
+            # ring crest at r≈1-2 px would pull the detected corner off
+            # the true projection)
+            inner = 1.0 - np.exp(-rr * rr / (2.0 * 4.0 * 4.0))
+            patch = patch + 0.15 * amplitude * env * inner * np.sin(om * rr + ph)
+        xa, xb = max(x0, 0), min(x0 + 2 * r + 1, width)
+        ya, yb = max(y0, 0), min(y0 + 2 * r + 1, height)
+        if xa < xb and ya < yb:
+            img[ya:yb, xa:xb] += patch[ya - y0:yb - y0, xa - x0:xb - x0]
+    return np.clip(img, 0.0, 255.0)
+
+
+def render_image(data: SimData, k: int, height: int = 640, width: int = 640,
+                 sigma: float = 1.8, amplitude: float = 200.0,
+                 background: float = 12.0, rings: bool = False) -> np.ndarray:
+    """Render frame k of a SimData sequence: one blob per visible landmark
+    (the simulator writes feature files, not images — this renderer closes
+    the loop so the KLT frontend can be exercised against exact geometry;
+    blob centers ARE the projections).  ``rings=True`` adds the
+    per-landmark ring fingerprints (render_blobs ring_ids) that give each
+    blob distinctive appearance for descriptor-based loop closing."""
+    vis = np.where(data.obs_valid[k])[0]
+    uvs = data.obs_uv[k][vis]
+    return render_blobs(uvs, height, width, sigma, amplitude, background,
+                        ring_ids=vis if rings else None)
