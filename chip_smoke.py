@@ -69,24 +69,87 @@ them.  Phases, each of which raises on failure:
    solve.  Also ``orb.describe`` on one rendered frame and
    ``orb.hamming_matrix``, card against CPU.
 
+11. global BA on one card: ``global_ba.solve`` at bench.py's scale-out
+   configuration (100 keyframes, 400 landmarks, 8 observations each: P =
+   600, the kernel's blocked regime), float32 at the bench's settings
+   (max_iter=10) and float64 at tests/test_global_ba.py's (max_iter=25).
+   float64 is held to test_global_ba_larger_window's bounds (chi² < 1e-8
+   chi²₀, max pose error < 1e-4 m).  The float32 run's own chi² carries no
+   information here: at loss_delta=50 the Cauchy cost δ²·log(e²/δ² + 1)
+   rounds to 0 in float32 once e² < ~1.5e-4, so it reads 0 while the poses
+   are still mm off.  (float64's own chi² rounds to 0 too, but only once
+   every e² < ~2.8e-13, which implies its bound.)  float32 is held instead to max pose error < 0.01 m
+   and to the chi² of its result recomputed in float64 (``assemble``)
+   ≤ 1e-6 of the start's, set from the JAX package's own float32 run of
+   the same problem on the CPU (0.00381 m, recomputed chi² 8.669e-08 of
+   the start's; the port's float32 runs on the CPU end between 2.5e-5 and
+   3.8e-3 m, by the order of their sums; scripts/torch_scale_out_cpu.py
+   jax).
+   Prints P, the regime, iterations, chi², pose error, wall seconds, the
+   launches, and from a second, instrumented run the milliseconds per
+   λ-attempt of assembly, the Schur product, the solve and the rest
+   (synchronised around each);
+12. global BA at SCALING.md's largest size on one card: 64 keyframes,
+   131,072 landmarks, 1,048,576 observation slots, P = 384, 8 LM
+   iterations, float32.  Held to: chi² below chi²₀ and the poses closer
+   to the truth than the perturbed start.  Prints phase 11's lines and the
+   peak device memory;
+13. distributed global BA: ``global_ba.solve_sharded`` at 64 keyframes,
+   8,192 landmarks (65,536 observations), 8 iterations, in float64 and
+   float32, on 1 rank under NCCL and on 2 ranks under gloo sharing the
+   card (and on 2 ranks under NCCL, one card each, where there are two
+   cards); each rank a spawned process.  In float64 the 2-rank poses are
+   held to the 1-rank ones (≤ 1e-8 m) and chi² to the float64 reduction's
+   parity (≤ 1e-9 relative, SCALING.md's); float32 is held to descent and
+   its difference printed (``distributed_paths`` says why).  Every rank
+   ends with the same poses to the bit.  Prints the bytes per all_reduce;
+14. factor-sharded window solve: ``sharded.solve_window_sharded`` on 2
+   ranks under gloo sharing the card (the same processes as phase 13's)
+   against ``lm.solve_window`` at make_window_problem(10, 256, 8)
+   (P = 171), float32, max_iter=10; poses ≤ 1e-3 (tests/
+   test_sharding.py's bound);
+15. BAL: ``bal.solve`` on seeded problems built as tests/test_bal.py's
+   noise-free case is (observations exact, the first two cameras the
+   gauge, intrinsics fixed, max_iter=40), at its size (6 cameras, 60
+   points, P = 54) and at the published size of BAL's Ladybug
+   problem-49-7776 (49 cameras, 7,776 points, 4 observations a point:
+   P = 441, the blocked regime), in float32 and float64.  float64 is held
+   to tests/test_bal.py's bounds (chi² < 1e-12 chi²₀, points < 1e-5);
+   float32 to chi² < 1e-6 chi²₀ and points < 1e-3, the float32 floor of
+   the same solve on the CPU (tests/test_torch_blockba.py);
+16. direct method: ``direct.direct_ba`` on tests/test_direct_ba.py's
+   textured-plane scene and ``direct.direct_pose_estimation`` on two
+   rendered simulator frames (tests/test_components.py's case), on the
+   card in float32 against the CPU in float64, each side held to those
+   tests' bounds.
+
 Times are printed and recorded, never asserted.  The line before the last
-is the kernels' JSON record, whose ``launches`` sums phases 5, 7, 9 and 10
-(the count is set to 0 just before each and read just after); the last
-line is ``{"ok": true, "device": {...}}``.
+is the kernels' JSON record, whose ``launches`` sums the launches of
+phases 5, 7, 9, 10 and 11-16 (the count is set to 0 just before each path
+and read just after; in phases 13-14 each rank counts its own and the
+ranks' counts are summed); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import datetime
 import json
+import multiprocessing
+import socket
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import traceback
+from queue import Empty
 
 import numpy as np
 import torch
 
-SIZES = (1, 2, 17, 33, 171, 300, 1023, 1024)
+# P = 384, 441 and 600: the scale-out paths' systems (phases 11-15)
+SIZES = (1, 2, 17, 33, 171, 300, 384, 441, 600, 1023, 1024)
 MAIN_P = 171
 N_FRAMES = 150
 N_IMAGE_FRAMES = 155
@@ -100,6 +163,14 @@ DISTORT = dict(k1=-0.28, k2=0.07, p1=1.0e-4, p2=-2.0e-4)
 # round-off of a well-conditioned system (condition number ~10).
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4, residual=1e-4),
        torch.float64: dict(rtol=1e-9, atol=1e-9, residual=1e-12)}
+GLOBAL_BENCH = dict(N=100, M=400, obs_per_lm=8)          # bench.py:185-198
+GLOBAL_SCALING = dict(N=64, M=131072, obs_per_lm=8)      # SCALING.md's largest row
+GLOBAL_DIST = dict(N=64, M=8192, obs_per_lm=8)           # SCALING.md's second row
+GLOBAL_PERTURB = dict(pose_sigma=0.02, rot_sigma=0.005)
+GLOBAL_F32_POSE_TOL = 0.01     # m; the JAX package's float32 run: 0.00381 m (phase 11)
+GLOBAL_F32_CHI2_64 = 1e-6      # of chi²₀, in float64; the JAX package's float32 run: 8.669e-08
+BAL_LADYBUG = dict(C=49, M=7776, per_point=4)   # problem-49-7776-pnts
+DIST_TIMEOUT_S = 600
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory,
 # float32 and float64 outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -593,6 +664,502 @@ def clahe_and_distortion_on_card(device, tag: str) -> None:
         raise AssertionError("clahe + radtan tracker: a published bearing is no landmark's")
 
 
+@contextlib.contextmanager
+def stage_timers(*targets):
+    """Replace each (module, name) by a wrapper that synchronises before
+    and after every call and logs its milliseconds; yields {name: [ms]}."""
+    logs = {name: [] for _, name in targets}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def wrap(fn, log):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            log.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return timed
+
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(fn, logs[name]))
+    try:
+        yield logs
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def global_ba_run(label: str, gt, noisy, kw: dict, tag: str, memory: bool = False) -> dict:
+    """Phases 11-12: one counted run of ``global_ba.solve`` and one run
+    with every stage synchronised.  Returns the counted run's numbers."""
+    from vio_tpu_torch.ops import _build, linsolve
+    from vio_tpu_torch.parallel import global_ba
+
+    P = 6 * noisy.Ps.shape[0]
+    elem = noisy.Ps.element_size()
+    regime = "registers" if _build.load().gj_solve_work_elems(P, elem) == 0 else "blocked"
+    if memory:
+        torch.cuda.reset_peak_memory_stats()
+    linsolve.gj_solve.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, st = global_ba.solve(noisy, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = linsolve.gj_solve.launches
+    peak = torch.cuda.max_memory_allocated() if memory else None
+
+    with stage_timers((global_ba, "_assemble_terms"), (global_ba, "reduce_camera_system"),
+                      (linsolve, "spd_solve")) as logs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        global_ba.solve(noisy, **kw)
+        torch.cuda.synchronize()
+        wall_i = 1e3 * (time.perf_counter() - t0)
+    n_att = len(logs["spd_solve"])
+    timed = sum(sum(v) for v in logs.values())
+    asm = statistics.mean(logs["_assemble_terms"][1:])
+    schur = statistics.mean(logs["reduce_camera_system"])
+    solve = statistics.mean(logs["spd_solve"])
+    rest = (wall_i - timed) / n_att
+
+    chi2, chi2_0 = float(st["chi2"]), float(st["chi2_init"])
+    err = float(torch.linalg.norm(out.Ps - gt.Ps, dim=1).max())
+    err0 = float(torch.linalg.norm(noisy.Ps - gt.Ps, dim=1).max())
+    O = int(noisy.valid.sum())
+    print(f"{label}: P={P} ({regime}), {O} observations, {st['iterations']} iterations, "
+          f"chi2 {chi2:.6e} of {chi2_0:.6e}, max pose error {err:.3e} m (start {err0:.3e} m), "
+          f"wall {wall:.3f} s, gj_solve launches {launches} {tag}")
+    print(f"{label} per λ-attempt ({n_att} attempts, synchronised): assembly {asm:.3f} ms, "
+          f"Schur product {schur:.3f} ms, gj_solve {solve:.3f} ms, rest {rest:.3f} ms; "
+          f"wall {wall_i / 1e3:.3f} s {tag}")
+    if peak is not None:
+        print(f"{label} peak device memory {peak / 2**30:.3f} GiB {tag}")
+    if not (launches > 0 and launches == st["iterations"]):
+        raise AssertionError(f"{label}: {launches} launches for {st['iterations']} attempts")
+    if not (np.isfinite(chi2) and bool(torch.isfinite(out.Ps).all())):
+        raise AssertionError(f"{label}: not finite")
+    if out.Ps.device.type != "cuda":
+        raise AssertionError(f"{label} ran on {out.Ps.device}")
+    return dict(out=out, launches=launches, chi2=chi2, chi2_0=chi2_0, err=err, err0=err0, P=P,
+                regime=regime, wall=wall, attempt_ms=dict(assembly=asm, schur=schur,
+                                                          solve=solve, rest=rest))
+
+
+def global_ba_one_card(tag: str) -> dict:
+    """Phase 11.  Returns the launches by type."""
+    from vio_tpu_torch import testing
+    from vio_tpu_torch.device import move
+    from vio_tpu_torch.parallel import global_ba
+
+    launches = {}
+    for dtype, kw, pose_tol in (
+            (torch.float32, dict(max_iter=10, fix_frames=2, loss_delta=50.0), GLOBAL_F32_POSE_TOL),
+            (torch.float64, dict(max_iter=25, fix_frames=2, loss_delta=50.0), 1e-4)):
+        gt, _ = testing.make_global_problem(**GLOBAL_BENCH, dtype=dtype)
+        noisy = testing.perturb_global(gt, **GLOBAL_PERTURB)
+        label = f"global BA 100 kf {str(dtype)[6:]}"
+        r = global_ba_run(label, gt, noisy, dict(kw, dtype=dtype), tag)
+        if dtype == torch.float32:
+            # the float32 chi² reads 0 near the solution (docstring, phase
+            # 11): the result's chi² in float64 is the one that is held
+            def chi2_64(p):
+                return float(global_ba.assemble(move(p, p.Ps.device, torch.float64),
+                                                GLOBAL_BENCH["N"], GLOBAL_BENCH["M"],
+                                                kw["fix_frames"], kw["loss_delta"]).chi2)
+            c, c0 = chi2_64(r["out"]), chi2_64(noisy)
+            print(f"{label}: the result's chi2 in float64 {c:.6e} of {c0:.6e} "
+                  f"(ratio {c / c0:.3e}, bound {GLOBAL_F32_CHI2_64:g}) {tag}")
+            ok = c <= GLOBAL_F32_CHI2_64 * c0
+        else:
+            ok = r["chi2"] < 1e-8 * r["chi2_0"]
+        if not (ok and r["err"] < pose_tol):
+            raise AssertionError(f"{label}: chi2 {r['chi2']} of {r['chi2_0']}, "
+                                 f"pose error {r['err']} m (bound {pose_tol})")
+        if r["regime"] != "blocked":
+            raise AssertionError("global BA: P=600 did not take the blocked regime")
+        launches[dtype] = r["launches"]
+    return launches
+
+
+def global_ba_scaling_size(tag: str) -> int:
+    """Phase 12.  Returns the launches."""
+    from vio_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    gt, _ = testing.make_global_problem(**GLOBAL_SCALING, dtype=torch.float32)
+    noisy = testing.perturb_global(gt, **GLOBAL_PERTURB)
+    torch.cuda.synchronize()
+    print(f"global BA 64 kf 1M obs: problem built in {time.perf_counter() - t0:.2f} s (host numpy) {tag}")
+    r = global_ba_run("global BA 64 kf 1M obs float32", gt, noisy,
+                      dict(max_iter=8, fix_frames=2), tag, memory=True)
+    if not (r["chi2"] < r["chi2_0"] and r["err"] < r["err0"]):
+        raise AssertionError(f"global BA at 1M observations: chi2 {r['chi2']} of {r['chi2_0']}, "
+                             f"pose error {r['err']} from {r['err0']} m")
+    return r["launches"]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_worker(rank: int, world: int, backend: str, port: int, devices, jobs, queue):
+    """One rank of phases 13-14, in a spawned process: puts (rank, results)
+    on the queue, or (rank, the traceback) when it fails."""
+    try:
+        import torch.distributed as dist
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device(devices[rank])
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=120))
+        from vio_tpu_torch import testing
+        from vio_tpu_torch.ops import linsolve
+        from vio_tpu_torch.parallel import global_ba, sharded
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        def counted(fn):
+            linsolve.gj_solve.launches = 0
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            return out, time.perf_counter() - t0, linsolve.gj_solve.launches
+
+        res = {}
+        if "global" in jobs:
+            gt, _ = testing.make_global_problem(**GLOBAL_DIST, device="cpu", dtype=torch.float64)
+            part = global_ba.prepare_sharded(testing.perturb_global(gt, **GLOBAL_PERTURB),
+                                             rank, world)
+            for dtype in (torch.float64, torch.float32):
+                (out, st), wall, launches = counted(lambda: global_ba.solve_sharded(
+                    part, max_iter=8, fix_frames=2, device=dev, dtype=dtype))
+                res[dtype] = dict(Ps=out.Ps.double().cpu().numpy(), chi2=float(st["chi2"]),
+                                  chi2_0=float(st["chi2_init"]), iterations=st["iterations"],
+                                  allreduces=st["allreduces"], bytes=st["allreduce_bytes"],
+                                  wall=wall, launches=launches)
+        if "window" in jobs:
+            states, f, _ = testing.make_window_problem(window_size=10, max_features=256,
+                                                       imu_per_interval=8, device=dev)
+            ls, lf = sharded.shard_problem(states, f, rank, world)
+            (out, _, _, st), wall, launches = counted(lambda: sharded.solve_window_sharded(
+                ls, lf, max_iter=10, device=dev))
+            res["window"] = dict(Ps=out.Ps.double().cpu().numpy(), chi2=float(st["chi2"]),
+                                 iterations=st["iterations"], bytes=st["allreduce_bytes"],
+                                 wall=wall, launches=launches)
+        dist.destroy_process_group()
+        queue.put((rank, res))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+        raise
+
+
+def run_ranks(world: int, backend: str, devices, jobs) -> list:
+    """Spawn ``world`` ranks of ``dist_worker``; returns their results in
+    rank order and leaves no process running."""
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=dist_worker, args=(r, world, backend, port, devices, jobs, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while len(results) < world:
+            try:
+                rank, res = queue.get(timeout=5)
+            except Empty:
+                codes = [p.exitcode for p in procs]
+                if any(codes) or time.monotonic() > deadline:
+                    raise RuntimeError(f"{backend} ranks: exit codes {codes}, "
+                                       f"{len(results)} of {world} results")
+                continue
+            if isinstance(res, str):
+                raise RuntimeError(f"{backend} rank {rank} of {world} failed:\n{res}")
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"{backend} ranks exited with {codes}")
+    return [results[r] for r in range(world)]
+
+
+def distributed_paths(tag: str) -> dict:
+    """Phases 13-14.  Returns the launches of each run, summed over its
+    ranks.  The 2-rank solve is held to the 1-rank one in float64, where
+    the float64 reduction makes the two agree as SCALING.md shows (poses
+    ≤ 1e-8 m, chi² ≤ 1e-9 relative); in float32, 8 iterations at 65,536
+    observations end far from convergence and the accept path follows the
+    float32 partial sums' order (on the CPU 1.4e-3 m and 7 % of chi²
+    between 1 and 2 ranks, scripts/torch_scale_out_cpu.py ranks), so there
+    each run is held to descent only and the difference is printed."""
+    from vio_tpu_torch import testing
+    from vio_tpu_torch.ops import linsolve
+    from vio_tpu_torch.solver import lm
+
+    gt, _ = testing.make_global_problem(**GLOBAL_DIST, device="cpu", dtype=torch.float64)
+    runs = {"1 rank nccl": run_ranks(1, "nccl", ["cuda:0"], ("global",)),
+            "2 ranks gloo": run_ranks(2, "gloo", ["cuda:0", "cuda:0"], ("global", "window"))}
+    if torch.cuda.device_count() >= 2:
+        runs["2 ranks nccl"] = run_ranks(2, "nccl", ["cuda:0", "cuda:1"], ("global",))
+    else:
+        print(f"solve_sharded 2 ranks nccl on two cards: not run, "
+              f"{torch.cuda.device_count()} card {tag}")
+    launches = {}
+    for dtype in (torch.float64, torch.float32):
+        one = runs["1 rank nccl"][0][dtype]
+        for name, ranks in runs.items():
+            g = [r[dtype] for r in ranks]
+            for r in g[1:]:
+                if not np.array_equal(r["Ps"], g[0]["Ps"]) or r["iterations"] != g[0]["iterations"]:
+                    raise AssertionError(f"solve_sharded {name}: the ranks' poses differ")
+            dP = float(np.abs(g[0]["Ps"] - one["Ps"]).max())
+            dchi = abs(g[0]["chi2"] - one["chi2"]) / one["chi2"]
+            err = float(np.linalg.norm(g[0]["Ps"] - gt.Ps.numpy(), axis=1).max())
+            label = f"solve_sharded {name} {str(dtype)[6:]}"
+            launches[label] = sum(r["launches"] for r in g)
+            print(f"{label}: {g[0]['iterations']} iterations, chi2 {g[0]['chi2']:.9e} of "
+                  f"{g[0]['chi2_0']:.6e}, against 1 rank: |dchi2|/chi2 {dchi:.3e}, max |dP| "
+                  f"{dP:.3e} m; max pose error {err:.3e} m, wall {max(r['wall'] for r in g):.3f} s, "
+                  f"{g[0]['allreduces']} all_reduces of {g[0]['bytes']} bytes, gj_solve launches "
+                  f"{[r['launches'] for r in g]} {tag}")
+            if dtype == torch.float64 and not (dP <= 1e-8 and dchi <= 1e-9):
+                raise AssertionError(f"{label}: not the 1-rank solution")
+            if not (g[0]["chi2"] < g[0]["chi2_0"] and all(r["launches"] > 0 for r in g)):
+                raise AssertionError(f"{label}: no descent or no launch")
+
+    # phase 14: the window solve split over the features of 2 ranks
+    states, f, _ = testing.make_window_problem(window_size=10, max_features=256,
+                                               imu_per_interval=8)
+    linsolve.gj_solve.launches = 0
+    ref, _, _, st = lm.solve_window(states, f, max_iter=10)
+    torch.cuda.synchronize()
+    w = [r["window"] for r in runs["2 ranks gloo"]]
+    if not np.array_equal(w[0]["Ps"], w[1]["Ps"]):
+        raise AssertionError("solve_window_sharded: the ranks' poses differ")
+    dP = float(np.abs(w[0]["Ps"] - ref.Ps.double().cpu().numpy()).max())
+    launches["solve_window_sharded 2 ranks gloo float32"] = sum(r["launches"] for r in w)
+    print(f"solve_window_sharded 2 ranks gloo: P=171, {w[0]['iterations']} iterations "
+          f"(solve_window {st['iterations']}), chi2 {w[0]['chi2']:.6e} (solve_window "
+          f"{float(st['chi2']):.6e}), max |dP| against solve_window {dP:.3e} m, wall "
+          f"{max(r['wall'] for r in w):.3f} s, all_reduce of {w[0]['bytes']} bytes, gj_solve "
+          f"launches {[r['launches'] for r in w]} (solve_window {linsolve.gj_solve.launches}) {tag}")
+    if not (dP <= 1e-3 and all(r["launches"] > 0 for r in w)):
+        raise AssertionError(f"solve_window_sharded: max |dP| {dP} m against solve_window")
+    return launches
+
+
+def bal_problem(C: int, M: int, per_point, seed: int, device, dtype):
+    """A noise-free BAL problem on ``device`` and its perturbed start, built
+    as tests/test_bal.py's noise-free case (points uniform in [-2, 2]³, f
+    = 500, k1 = 1e-4, k2 = 1e-7; the first two cameras unperturbed, the
+    others' rotations by 0.02 rad and centres by 0.05, points by 0.05),
+    with numpy draws.  The cameras sit on a cap of radius 8 around the
+    cloud, each looking at its centre, so every point is in front of every
+    camera; ``per_point`` cameras, drawn at random, see each point (None:
+    all of them).  Returns (gt, noisy) BalProblems."""
+    from vio_tpu_torch.device import move
+    from vio_tpu_torch.solver import bal
+    from vio_tpu_torch.utils import lie
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-2.0, 2.0, (M, 3))
+    polar = 0.6 * np.sqrt(rng.uniform(0.0, 1.0, C))
+    azim = rng.uniform(0.0, 2.0 * np.pi, C)
+    z = np.stack([np.sin(polar) * np.cos(azim), np.sin(polar) * np.sin(azim),
+                  np.cos(polar)], axis=1)                     # centre direction
+    x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    R = np.stack([x, np.cross(z, x), z], axis=1)              # rows: camera axes
+    t = -np.einsum("cij,cj->ci", R, 8.0 * z)                  # P = R X + t, P_z < 0
+    if per_point is None:
+        cam_idx, pt_idx = np.repeat(np.arange(C), M), np.tile(np.arange(M), C)
+    else:
+        cam_idx = np.stack([rng.choice(C, per_point, replace=False) for _ in range(M)]).reshape(-1)
+        pt_idx = np.repeat(np.arange(M), per_point)
+    host = dict(dtype=torch.float64)
+    q = lie.mat_to_quat(torch.as_tensor(R, **host))
+    fkk = torch.tensor([[500.0, 1e-4, 1e-7]], **host).repeat(C, 1)
+    ci, pi = torch.as_tensor(cam_idx), torch.as_tensor(pt_idx)
+    P = torch.as_tensor(pts, **host)
+    tt = torch.as_tensor(t, **host)
+    uv = bal.bal_residual(q[ci], tt[ci], fkk[ci], P[pi], torch.zeros((len(ci), 2), **host))
+    gt = bal.BalProblem(cam_q=q, cam_t=tt, cam_fkk=fkk, points=P, cam_idx=ci, pt_idx=pi,
+                        uv=uv, valid=torch.ones(len(ci), dtype=torch.bool))
+    mask = torch.as_tensor((np.arange(C) >= 2)[:, None], **host)
+    dth = torch.as_tensor(0.02 * rng.standard_normal((C, 3)), **host) * mask
+    noisy = gt._replace(
+        cam_q=lie.quat_normalize(lie.quat_mul(q, lie.so3_exp_quat(dth))),
+        cam_t=tt + 0.05 * mask * torch.as_tensor(rng.standard_normal((C, 3)), **host),
+        points=P + 0.05 * torch.as_tensor(rng.standard_normal((M, 3)), **host))
+    return move(gt, device, dtype), move(noisy, device, dtype)
+
+
+def bal_paths(device, tag: str) -> dict:
+    """Phase 15.  Returns the launches by run."""
+    from vio_tpu_torch.ops import _build, linsolve
+    from vio_tpu_torch.solver import bal
+
+    launches = {}
+    for label, C, M, per_point in (("BAL 6 cameras 60 points", 6, 60, None),
+                                   ("BAL Ladybug-49 size", BAL_LADYBUG["C"], BAL_LADYBUG["M"],
+                                    BAL_LADYBUG["per_point"])):
+        for dtype, chi_tol, pt_tol in ((torch.float32, 1e-6, 1e-3),
+                                       (torch.float64, 1e-12, 1e-5)):
+            gt, noisy = bal_problem(C, M, per_point, seed=C, device=device, dtype=dtype)
+            P = 9 * C
+            regime = ("registers" if _build.load().gj_solve_work_elems(P, gt.points.element_size())
+                      == 0 else "blocked")
+            linsolve.gj_solve.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, hist = bal.solve(noisy, max_iter=40, optimize_intrinsics=False, gauge_fix=2,
+                                  dtype=dtype)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = linsolve.gj_solve.launches
+            err = float(torch.linalg.norm(out.points - gt.points, dim=1).max())
+            err0 = float(torch.linalg.norm(noisy.points - gt.points, dim=1).max())
+            name = f"{label} {str(dtype)[6:]}"
+            print(f"{name}: P={P} ({regime}), {len(gt.cam_idx)} observations, "
+                  f"{len(hist) - 1} accepted steps, chi2 {hist[-1]:.6e} of {hist[0]:.6e}, "
+                  f"max point error {err:.3e} (start {err0:.3e}), wall {wall:.3f} s, "
+                  f"gj_solve launches {n} {tag}")
+            if not (hist[-1] < chi_tol * hist[0] and err < pt_tol and n >= len(hist) - 1 > 0):
+                raise AssertionError(f"{name}: chi2 {hist[-1]} of {hist[0]}, point error {err}, "
+                                     f"{n} launches")
+            launches[f"bal.solve {name}"] = n
+    return launches
+
+
+def _tex(x, y):
+    """tests/test_direct_ba.py's plane texture."""
+    return (128.0 + 45.0 * np.sin(5.5 * x + 3.0 * y) + 35.0 * np.cos(4.0 * x - 5.0 * y)
+            + 30.0 * np.sin(9.5 * x + 0.3) + 25.0 * np.cos(8.5 * y + 0.9))
+
+
+def direct_scene():
+    """tests/test_direct_ba.py's scene (4 cameras over the plane z = 6,
+    40 points, 240 x 320 images) and its perturbation, on the CPU in
+    float64: (gt, noisy) DirectBAProblems."""
+    from vio_tpu_torch.features import direct
+    from vio_tpu_torch.utils import lie
+
+    FX = FY = 200.0
+    CX, CY, H, W, Z0, C, M = 160.0, 120.0, 240, 320, 6.0, 4, 40
+    rng = np.random.default_rng(0)
+    u, v = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    dirs_c = np.stack([(u - CX) / FX, (v - CY) / FY, np.ones_like(u)], -1)
+    cam_q, cam_t, imgs = [], [], []
+    for ci in range(C):
+        phi = 0.02 * ci * np.array([0.5, -1.0, 0.7])
+        Rcw = lie.so3_exp_mat(torch.as_tensor(phi)).numpy()
+        center = np.array([0.4 * ci, -0.25 * ci, 0.08 * ci])
+        dirs_w = dirs_c @ Rcw
+        s = (Z0 - center[2]) / dirs_w[..., 2]
+        Xw = center[None, None, :] + s[..., None] * dirs_w
+        imgs.append(_tex(Xw[..., 0], Xw[..., 1]))
+        cam_q.append(lie.mat_to_quat(torch.as_tensor(Rcw)).numpy())
+        cam_t.append(-Rcw @ center)
+    pts = np.stack([rng.uniform(-2.5, 2.5, M), rng.uniform(-1.8, 1.8, M), np.full(M, Z0)], 1)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)  # noqa: E731
+    gt = direct.DirectBAProblem(
+        images=t(np.stack(imgs)), K=(FX, FY, CX, CY), cam_q=t(np.stack(cam_q)),
+        cam_t=t(np.stack(cam_t)), points=t(pts), ref_patch=torch.zeros((M, 16), dtype=torch.float64),
+        cam_idx=torch.arange(C).repeat_interleave(M), pt_idx=torch.arange(M).repeat(C),
+        valid=torch.ones(C * M, dtype=torch.bool))
+    zero = torch.zeros(M, dtype=torch.int64)
+    ref, inb = direct._photo_residual(gt.images, zero, gt.K, gt.cam_q[zero], gt.cam_t[zero],
+                                      gt.points, gt.ref_patch)
+    if not bool(inb.all()):
+        raise AssertionError("direct scene: a point is out of frame 0")
+    gt = gt._replace(ref_patch=ref)
+    rng = np.random.default_rng(1)
+    mask = (np.arange(C) >= 2).astype(np.float64)[:, None]
+    dth = t(0.008 * rng.standard_normal((C, 3)) * mask)
+    noisy = gt._replace(
+        cam_q=lie.quat_normalize(lie.quat_mul(gt.cam_q, lie.so3_exp_quat(dth))),
+        cam_t=gt.cam_t + t(0.03 * rng.standard_normal((C, 3)) * mask),
+        points=gt.points + t(0.03 * rng.standard_normal((M, 3))))
+    return gt, noisy
+
+
+def direct_paths(device, tag: str) -> int:
+    """Phase 16.  Returns the launches of the card's direct BA."""
+    from vio_tpu_torch import sim
+    from vio_tpu_torch.features import direct
+    from vio_tpu_torch.ops import linsolve
+
+    gt, noisy = direct_scene()
+    C, M = gt.cam_q.shape[0], gt.points.shape[0]
+    chi_gt = float(direct._direct_assemble(gt, C, M, 2, 40.0).chi2)
+    out = {}
+    for side, kw in (("card float32", dict(device=device)), ("CPU float64", dict(device="cpu"))):
+        linsolve.gj_solve.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o, hist = direct.direct_ba(noisy, max_iter=30, gauge_fix=2, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cam0 = np.linalg.norm((noisy.cam_t - gt.cam_t).numpy(), axis=1)[2:].max()
+        cam1 = np.linalg.norm(o.cam_t.double().cpu().numpy() - gt.cam_t.numpy(), axis=1)[2:].max()
+        pt0 = np.median(np.linalg.norm((noisy.points - gt.points).numpy(), axis=1))
+        pt1 = np.median(np.linalg.norm(o.points.double().cpu().numpy() - gt.points.numpy(), axis=1))
+        out[side] = dict(o=o, launches=linsolve.gj_solve.launches)
+        print(f"direct BA {side}: P={6 * C}, {len(hist) - 1} accepted steps, chi2 {hist[-1]:.6e} "
+              f"of {hist[0]:.6e} (floor {chi_gt:.6e}), camera error {cam1:.3e} m from {cam0:.3e}, "
+              f"median point error {pt1:.3e} from {pt0:.3e}, wall {wall:.3f} s, gj_solve "
+              f"launches {linsolve.gj_solve.launches} {tag}")
+        if not (hist[-1] < max(1.5 * chi_gt, 1e-3 * hist[0]) and cam1 < 0.3 * cam0
+                and pt1 < 0.3 * pt0):
+            raise AssertionError(f"direct BA {side}: tests/test_direct_ba.py's bounds missed")
+    card, cpu = out["card float32"]["o"], out["CPU float64"]["o"]
+    d = float((card.points.double().cpu() - cpu.points).abs().max())
+    print(f"direct BA card against CPU: max |dX| {d:.3e} m {tag}")
+    if card.points.device.type != "cuda" or not out["card float32"]["launches"] > 0:
+        raise AssertionError("direct BA did not run on the card through the kernel")
+
+    data = sim.generate(noise=False)
+    img0, img1 = (sim.render_image(data, k) for k in (0, 1))
+    lids = np.where(data.obs_valid[0] & data.obs_valid[1])[0]
+    uv0 = data.obs_uv[0][lids]
+    depth0 = np.einsum("ji,lj->li", data.cam_R[0], data.landmarks[lids] - data.cam_p[0])[:, 2]
+    R_gt = data.cam_R[1].T @ data.cam_R[0]
+    t_gt = data.cam_R[1].T @ (data.cam_p[0] - data.cam_p[1])
+    est = {}
+    for side, kw in (("card float32", dict(device=device)), ("CPU float64", dict(device="cpu"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        R, t = direct.direct_pose_estimation(img0, img1, uv0, depth0,
+                                             (460.0, 460.0, 255.0, 255.0), **kw)
+        R, t = R.double().cpu().numpy(), t.double().cpu().numpy()
+        ms = 1e3 * (time.perf_counter() - t0)
+        ang = np.degrees(np.arccos(np.clip((np.trace(R_gt.T @ R) - 1) / 2, -1, 1)))
+        est[side] = t
+        print(f"direct_pose_estimation {side}: {len(lids)} points, rotation error {ang:.4f} deg, "
+              f"|t - t_gt| {np.linalg.norm(t - t_gt):.3e}, {ms:.1f} ms {tag}")
+        if not (ang < 0.5 and np.linalg.norm(t - t_gt) < 0.05):
+            raise AssertionError(f"direct_pose_estimation {side}: bounds missed")
+    print(f"direct_pose_estimation card against CPU: max |dt| "
+          f"{np.abs(est['card float32'] - est['CPU float64']).max():.3e} {tag}")
+    return out["card float32"]["launches"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. environment ----
@@ -739,29 +1306,43 @@ def main() -> int:
     orb_on_card_against_cpu(est.device, tag)
     loop_launches = loop_closing_path(None, tag, LOOP_DTYPE)
 
+    # ---- 11-16. scale-out: global BA, distributed, window split, BAL, direct ----
+    t_scale = time.perf_counter()
+    by_path = {"run_sim float32": launches, "run_images float64": sync["launches"],
+               "run_images_async float64": async_launches,
+               "run_sim + LoopCloser float64": loop_launches}
+    for dtype, n in global_ba_one_card(tag).items():
+        by_path[f"global_ba.solve 100 kf P=600 {str(dtype)[6:]}"] = n
+    by_path["global_ba.solve 64 kf 1M obs P=384 float32"] = global_ba_scaling_size(tag)
+    by_path.update(distributed_paths(tag))
+    by_path.update(bal_paths(est.device, tag))
+    by_path["direct_ba float32"] = direct_paths(est.device, tag)
+    print(f"chip_smoke: phases 11-16 took {time.perf_counter() - t_scale:.0f} s {tag}")
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s {tag}")
 
-    # One kernel, four paths: the simulation path solves P = 171 in
+    # One kernel, many paths: the simulation path solves P = 171 in
     # float32 (the keys the record requires), the two image paths and the
-    # loop path in float64 (the same numbers under "float64").
+    # loop path in float64 (the same numbers under "float64"); the
+    # scale-out paths' sizes under "sizes".
     main, main64 = rec[(torch.float32, MAIN_P)], rec[(torch.float64, MAIN_P)]
     print(json.dumps({"kernels": [{
         "name": "gj_solve", "route": "cuda",
         "source": "vio_tpu_torch/csrc/gj_solve.cu",
         "replaces": "vio_tpu/ops/linsolve.py:34",
-        "launches": launches + sync["launches"] + async_launches + loop_launches,
+        "launches": sum(by_path.values()),
         "max_abs_err": main["err"],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
-        "launches_by_path": {"run_sim float32": launches,
-                             "run_images float64": sync["launches"],
-                             "run_images_async float64": async_launches,
-                             "run_sim + LoopCloser float64": loop_launches},
+        "launches_by_path": by_path,
         "float64": {"max_abs_err": main64["err"], "ms": main64["ms"],
                     "plain_ms": main64["plain_ms"], "bound_ms": main64["bound_ms"],
                     "bound_by": main64["bound_by"],
-                    "library_ms": main64["library_ms"]}}]}))
+                    "library_ms": main64["library_ms"]},
+        "sizes": {f"{str(dt)[6:]} P={P}": {k: rec[(dt, P)][k] for k in (
+            "err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                  for dt in (torch.float32, torch.float64) for P in (384, 441, 600)}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0

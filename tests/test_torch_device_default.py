@@ -4,20 +4,22 @@ carrying on quietly on the CPU.  The inner functions take the device from
 their caller and keep no default of their own."""
 import inspect
 
+import numpy as np
 import pytest
 import torch
 
-from vio_tpu_torch import checkpoint, convert, runner, sim
+from vio_tpu_torch import checkpoint, convert, runner, sim, testing
 from vio_tpu_torch.camera import PinholeCamera
 from vio_tpu_torch.config import sim_config, sim_images_config
 from vio_tpu_torch.device import resolve
 from vio_tpu_torch.estimator import Estimator
-from vio_tpu_torch.features import clahe, detect, klt, pyramid
+from vio_tpu_torch.features import clahe, detect, direct, klt, pyramid
 from vio_tpu_torch.features.tracker import FeatureTracker
 from vio_tpu_torch.init import sfm
 from vio_tpu_torch.loop import posegraph, vocab
 from vio_tpu_torch.loop.closer import LoopCloser
-from vio_tpu_torch.solver import frame_step
+from vio_tpu_torch.parallel import global_ba, sharded
+from vio_tpu_torch.solver import bal, frame_step
 
 torch.set_num_threads(1)
 
@@ -128,7 +130,8 @@ def test_dtype_rule(device, dtype, expect):
 @pytest.mark.parametrize("fn", [
     frame_step.frame_step, sfm.relative_rotation, sfm.solve_relative_rt,
     sfm.construct, convert.to_tensor, convert.window_states_from_numpy,
-    convert.window_factors_from_numpy, posegraph.optimize, vocab.Vocabulary.__init__,
+    convert.window_factors_from_numpy, convert.global_ba_from_numpy,
+    convert.bal_problem_from_numpy, convert.direct_problem_from_numpy, posegraph.optimize, vocab.Vocabulary.__init__,
     vocab.Vocabulary.train], ids=lambda f: f.__qualname__)
 def test_inner_functions_keep_no_device_default(fn):
     """The vocabulary's device work is integer only: it takes no dtype."""
@@ -162,8 +165,50 @@ def test_frontend_functions_take_the_device_from_their_inputs(fn):
 @pytest.mark.parametrize("entry", [FeatureTracker.__init__, runner.make_tracker,
                                    runner.run_images, runner.run_images_async,
                                    runner.run_sim, Estimator.__init__,
-                                   LoopCloser.__init__, LoopCloser.load, checkpoint.load],
+                                   LoopCloser.__init__, LoopCloser.load, checkpoint.load,
+                                   global_ba.solve, global_ba.solve_sharded,
+                                   sharded.solve_window_sharded, sharded.training_step,
+                                   bal.solve, bal.load_bal, direct.direct_ba,
+                                   direct.direct_pose_estimation,
+                                   testing.make_global_problem,
+                                   testing.make_window_problem],
                          ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(entry):
     params = inspect.signature(entry).parameters
     assert params["device"].default is None and params["dtype"].default is None
+
+
+def test_scale_out_entry_points_raise_without_a_card(no_card, tmp_path):
+    """Each raises before any work: the problems are built on the CPU
+    first, as a machine without a card would."""
+    cpu = dict(device="cpu")
+    p, _ = testing.make_global_problem(N=8, M=16, obs_per_lm=2, **cpu)
+    states, f, _ = testing.make_window_problem(window_size=2, max_features=8,
+                                               imu_per_interval=2, **cpu)
+    calls = [lambda: testing.make_global_problem(N=8, M=16, obs_per_lm=2),
+             lambda: testing.make_window_problem(window_size=2, max_features=8),
+             lambda: global_ba.solve(p), lambda: global_ba.solve_sharded(p),
+             lambda: sharded.solve_window_sharded(states, f),
+             lambda: sharded.training_step(states, f),
+             lambda: bal.load_bal(str(tmp_path / "absent.txt")),
+             lambda: direct.direct_pose_estimation(
+                 np.zeros((32, 32)), np.zeros((32, 32)), np.zeros((1, 2)), np.ones(1),
+                 (1.0, 1.0, 0.0, 0.0))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    bp = bal.BalProblem(*(torch.zeros(1) for _ in bal.BalProblem._fields))
+    dp = direct.DirectBAProblem(*(torch.zeros(1) for _ in direct.DirectBAProblem._fields))
+    for call in (lambda: bal.solve(bp), lambda: direct.direct_ba(dp)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+
+
+def test_scale_out_entry_points_run_on_an_explicit_cpu():
+    p, _ = testing.make_global_problem(N=8, M=32, obs_per_lm=3, device="cpu",
+                                       dtype=torch.float32)
+    out, stats = global_ba.solve(p, max_iter=2, fix_frames=2, device="cpu")
+    assert out.Ps.device.type == "cpu" and out.Ps.dtype == torch.float64
+    out, _ = global_ba.solve(p, max_iter=2, fix_frames=2, device="cpu",
+                             dtype=torch.float32)
+    assert out.Ps.dtype == torch.float32

@@ -31,7 +31,10 @@ MODULES = [
     "vio_tpu_torch.solver.generic", "vio_tpu_torch.solver.lm",
     "vio_tpu_torch.solver.marginalize", "vio_tpu_torch.solver.pcg",
     "vio_tpu_torch.solver.window", "vio_tpu_torch.utils.lie",
-    "vio_tpu_torch.utils.lie_np",
+    "vio_tpu_torch.utils.lie_np", "vio_tpu_torch.testing",
+    "vio_tpu_torch.solver.blockba", "vio_tpu_torch.solver.bal",
+    "vio_tpu_torch.features.direct", "vio_tpu_torch.parallel",
+    "vio_tpu_torch.parallel.global_ba", "vio_tpu_torch.parallel.sharded",
 ]
 
 _PROBE = """

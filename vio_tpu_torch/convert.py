@@ -15,6 +15,9 @@ import torch
 
 from .config import VioConfig
 from .factors import ImuFactorTerms
+from .features.direct import DirectBAProblem
+from .parallel.global_ba import GlobalBA
+from .solver.bal import BalProblem
 from .solver.window import WindowFactors, WindowStates
 
 
@@ -48,6 +51,23 @@ def window_factors_from_numpy(d: dict, *, device, dtype) -> WindowFactors:
     ``imu_terms`` entry is a dict keyed by ImuFactorTerms' fields."""
     terms = lambda t: _from_dict(ImuFactorTerms, t, device, dtype)  # noqa: E731
     return _from_dict(WindowFactors, d, device, dtype, nested={"imu_terms": terms})
+
+
+def global_ba_from_numpy(d: dict, *, device, dtype) -> GlobalBA:
+    """GlobalBA from numpy arrays keyed by its field names."""
+    return _from_dict(GlobalBA, d, device, dtype)
+
+
+def bal_problem_from_numpy(d: dict, *, device, dtype) -> BalProblem:
+    """BalProblem from numpy arrays keyed by its field names."""
+    return _from_dict(BalProblem, d, device, dtype)
+
+
+def direct_problem_from_numpy(d: dict, *, device, dtype) -> DirectBAProblem:
+    """DirectBAProblem from numpy arrays keyed by its field names; ``K``,
+    the static (fx, fy, cx, cy), stays a tuple of floats."""
+    K = lambda k: tuple(float(v) for v in k)  # noqa: E731
+    return _from_dict(DirectBAProblem, d, device, dtype, nested={"K": K})
 
 
 def to_numpy(x):

@@ -24,3 +24,17 @@ def resolve(device=None, dtype=None) -> tuple[torch.device, torch.dtype]:
     if dtype is None:
         dtype = torch.float32 if device.type == "cuda" else torch.float64
     return device, dtype
+
+
+def move(nt, device, dtype):
+    """A NamedTuple of tensors (nested ones too) on ``device``, its
+    floating tensors in ``dtype``; fields that are neither (static
+    configuration) stay as they are.  Nothing is copied that is already
+    there."""
+    def one(x):
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return move(x, device, dtype)
+        if not isinstance(x, torch.Tensor):
+            return x
+        return x.to(device, dtype) if x.is_floating_point() else x.to(device)
+    return type(nt)(*(one(x) for x in nt))

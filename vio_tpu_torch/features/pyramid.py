@@ -88,11 +88,13 @@ def central_gradients(img):
     return gx, gy
 
 
-def bilinear_sample(img, xy):
+def bilinear_sample(img, xy, index=None):
     """Sample img (..., H, W) at float positions xy (..., 2) (x=col,
     y=row), with edge clamping: positions are clamped to
     [0, W − 1.001] × [0, H − 1.001] before the four taps are gathered.
-    Leading dimensions of img are channels sampled at the same positions."""
+    Leading dimensions of img are channels sampled at the same positions.
+    With ``index`` (integers that broadcast against xy[..., 0]), img is a
+    stack (C, H, W) and each position samples image ``index`` of it."""
     H, W = img.shape[-2:]
     x = torch.clamp(xy[..., 0], 0.0, W - 1.001)
     y = torch.clamp(xy[..., 1], 0.0, H - 1.001)
@@ -100,11 +102,16 @@ def bilinear_sample(img, xy):
     y0 = torch.floor(y).to(torch.int64)
     fx = x - x0
     fy = y - y0
-    flat = img.reshape(img.shape[:-2] + (H * W,))
-    i00 = flat[..., y0 * W + x0]
-    i01 = flat[..., y0 * W + x0 + 1]
-    i10 = flat[..., (y0 + 1) * W + x0]
-    i11 = flat[..., (y0 + 1) * W + x0 + 1]
+    base = y0 * W + x0
+    if index is None:
+        flat = img.reshape(img.shape[:-2] + (H * W,))
+    else:
+        flat = img.reshape(-1)
+        base = base + index * (H * W)
+    i00 = flat[..., base]
+    i01 = flat[..., base + 1]
+    i10 = flat[..., base + W]
+    i11 = flat[..., base + W + 1]
     return ((1 - fy) * ((1 - fx) * i00 + fx * i01) +
             fy * ((1 - fx) * i10 + fx * i11))
 
