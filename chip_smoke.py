@@ -121,14 +121,46 @@ them.  Phases, each of which raises on failure:
    textured-plane scene and ``direct.direct_pose_estimation`` on two
    rendered simulator frames (tests/test_components.py's case), on the
    card in float32 against the CPU in float64, each side held to those
-   tests' bounds.
+   tests' bounds;
+17. online td: tests/test_td.py::_run_online_td's stream (the camera clock
+   lags the IMU clock by 6 ms, finite-difference feature velocities) for
+   200 frames, the estimator refining td from 0 in float32 on the card,
+   held to that test's bounds (2 < td < 7.2 ms, APE < 0.15 m);
+18. EuRoC layout: ``io.write_euroc`` writes the first 60 of phase 7's
+   frames (.npy), ``io.load_euroc`` must return phase 7's IMU samples and
+   its stamps to the nanosecond, and ``runner.run_euroc`` runs them with
+   phase 7's precisions, held to APE < 0.05 m against the written ground
+   truth (paired by stamp as the CLI pairs them) and to a run_images of
+   its first 40 frames, rendered, at the layout's stamps (max |dp| ≤
+   1e-6 m).
+   Against phase 7 itself the poses are printed, not held: rounding the
+   stamps to nanoseconds moves the estimator's 0.1 s init-retry gate by a
+   frame (scripts/torch_euroc_stamps.py measures it);
+19. device functions, card against CPU: ``stereo.disparity_from_flow``
+   (tests/test_stereo.py's 40-feature pair), ``icp.umeyama`` and
+   ``icp.icp_gn`` (tests/test_components.py's case),
+   ``intrinsics.refine_corners_subpix`` (tests/test_intrinsics.py's
+   rendered board), ``marginalize_old`` / ``marginalize_new`` on
+   make_window_problem(10, 256, 8) (P = 171) in float64 against the host
+   float64 chain by H_prior, b_prior, H·JtᵀJt·H, H·Jtᵀerr and errᵀerr over
+   the directions both sides keep (see ``_prior_invariants``; the kept
+   spectrum below MARG_GAP, errᵀerr over all kept and the float32 chain's
+   distance are printed), and ``calibrate_chessboard`` on the card, each
+   at its reference test's bounds;
+20. the CLI: ``python -m vio_tpu_torch.cli run --dataset sim``, ``run
+   --dataset hybrid`` on IMU and camera-stamp files written from the
+   simulator with a 2 s static prefix (80 frames: 40 would all fall in the
+   prefix at the hybrid's 20 Hz), and ``sim --out``, three processes at
+   once, each JSON line parsed and held: both runs on the card in their
+   precision, with poses, kernel launches, no failure and APE < 0.01 m.
 
 Times are printed and recorded, never asserted.  The line before the last
 is the kernels' JSON record, whose ``launches`` sums the launches of
-phases 5, 7, 9, 10 and 11-16 (the count is set to 0 just before each path
-and read just after; in phases 13-14 each rank counts its own and the
-ranks' counts are summed); the last line is ``{"ok": true, "device":
-{...}}``.
+phases 5, 7, 9, 10, 11-16, 17, 18 and 20 (the count is set to 0 just
+before each path and read just after; in phases 13-14 each rank counts
+its own and the ranks' counts are summed; in phase 20 each process
+reports its own in its JSON line); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -171,6 +203,26 @@ GLOBAL_F32_POSE_TOL = 0.01     # m; the JAX package's float32 run: 0.00381 m (ph
 GLOBAL_F32_CHI2_64 = 1e-6      # of chi²₀, in float64; the JAX package's float32 run: 8.669e-08
 BAL_LADYBUG = dict(C=49, M=7776, per_point=4)   # problem-49-7776-pnts
 DIST_TIMEOUT_S = 600
+TD_TRUE = 0.006                # s; tests/test_td.py's online-td stream (phase 17)
+N_TD_FRAMES = 200
+N_EUROC_FRAMES = 60            # phase 18: the first frames of phase 7's stream
+N_TWIN_FRAMES = 40             # phase 18's run_images at the layout's stamps
+EUROC_APE = 0.05               # m; tests/test_image_pipeline.py's bound
+EUROC_TWIN_DP = 1e-6           # m; phase 9's bound for one stream run twice
+STEREO_FX, STEREO_BASELINE = 460.0, 0.11       # tests/test_stereo.py's rig
+STEREO_FLIPS, STEREO_TOL = 2, 1e-2             # of 40 features; px (float32 positions)
+ICP_TOL = 1e-4                 # float32 R and t against float64
+MARG_RTOL = 1e-7               # tests/test_torch_marginalize.py's
+MARG_EE_RTOL = 1e-5            # the same file's bound on errᵀerr
+MARG_GAP = 1.0                 # between the priors' round-off floor (< 0.05) and their weakest direction (> 9)
+CHESS_TRUE = dict(fx=460.0, fy=458.0, cx=325.0, cy=238.0,
+                  k1=-0.28, k2=0.07, p1=1e-4, p2=-2e-4)   # tests/test_intrinsics.py's
+CHESS_EXACT = (("fx", 0.01), ("fy", 0.01), ("cx", 0.01), ("cy", 0.01),
+               ("k1", 1e-4), ("k2", 1e-4), ("p1", 1e-5), ("p2", 1e-5))
+HYBRID_STATIC_S = 2.0          # s at rest before the simulator's motion (phase 20)
+CLI_SIM_FRAMES, CLI_HYBRID_FRAMES = 40, 80
+CLI_APE = 0.01                 # m; tests/test_torch_cli_viz.py's bound on the sim run
+CLI_TIMEOUT_S = 400
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory,
 # float32 and float64 outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -1160,6 +1212,430 @@ def direct_paths(device, tag: str) -> int:
     return out["card float32"]["launches"]
 
 
+def online_td_path(tag: str) -> int:
+    """Phase 17.  tests/test_td.py::_run_online_td's stream: the camera
+    clock lags the IMU clock by TD_TRUE, the features carry their
+    finite-difference velocities, and the estimator refines td from 0 on
+    the default device in its type (the card, float32).  Returns the
+    launches."""
+    from vio_tpu_torch import metrics, runner, sim
+    from vio_tpu_torch.config import sim_config
+    from vio_tpu_torch.estimator import Estimator
+    from vio_tpu_torch.ops import linsolve
+
+    data = sim.generate(noise=False)
+    lagged_t = data.cam_t - TD_TRUE
+    est = Estimator(sim_config(td=0.0, estimate_td=True))
+    ts, ps, imu_i = [], [], 0
+    t_prev = lagged_t[0] + est.td
+    linsolve.gj_solve.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(N_TD_FRAMES):
+        t = lagged_t[k] + est.td          # the live offset, as the drivers read it
+        if k:
+            imu_i = runner.feed_interval(est, data.imu_t, data.acc, data.gyr, t_prev, t, imu_i)
+        t_prev = t
+        dt = data.cam_t[k] - data.cam_t[k - 1] if k else 1.0
+        feats = {}
+        for lid in np.where(data.obs_valid[k])[0]:
+            xy = data.obs_xy[k, lid]
+            vel = ((xy - data.obs_xy[k - 1, lid]) / dt
+                   if k and data.obs_valid[k - 1, lid] else np.zeros(2))
+            feats[int(lid)] = (np.array([xy[0], xy[1], 1.0]), data.obs_uv[k, lid], vel)
+        est.process_image(feats, t)
+        if est.initialized:
+            tt, p, _ = est.latest_pose()
+            ts.append(tt)
+            ps.append(p)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = linsolve.gj_solve.launches
+    if not (est.initialized and est.failure_count == 0):
+        raise AssertionError(f"online td: initialized {est.initialized}, "
+                             f"failure_count {est.failure_count}")
+    ps = np.asarray(ps)
+    gt_p, _ = runner.sim_ground_truth_at(data, np.asarray(ts) + (TD_TRUE - est.td))
+    ape = metrics.ape_rmse(ps, gt_p)["rmse"]
+    print(f"online td: {N_TD_FRAMES} frames, {len(ts)} poses, td {est.td * 1e3:.4f} ms "
+          f"(true {TD_TRUE * 1e3:.1f} ms, bounds 2 < td < {1.2 * TD_TRUE * 1e3:.1f} ms), "
+          f"APE rmse {ape:.6f} m (bound 0.15 m), {str(est.dtype)[6:]} {tag}")
+    print(f"online td wall {N_TD_FRAMES / wall:.3f} frames/s ({wall:.2f} s), "
+          f"gj_solve launches {launches} {tag}")
+    if not (2e-3 < est.td < 1.2 * TD_TRUE and np.all(np.isfinite(ps)) and ape < 0.15):
+        raise AssertionError(f"online td: td {est.td}, APE {ape}: tests/test_td.py's bounds missed")
+    if not (est.device.type == "cuda" and est.dtype == torch.float32 and launches > 0):
+        raise AssertionError(f"online td: {est.device}, {est.dtype}, {launches} launches")
+    return launches
+
+
+def euroc_layout_path(tag: str, sync: dict) -> int:
+    """Phase 18.  ``sync`` is phase 7's result.  Returns the launches of
+    ``run_euroc``."""
+    import dataclasses
+    import tempfile
+
+    from vio_tpu_torch import io as vio_io
+    from vio_tpu_torch import metrics, runner, sim
+    from vio_tpu_torch.cli import nearest_stamp
+    from vio_tpu_torch.config import sim_images_config
+    from vio_tpu_torch.ops import linsolve
+
+    cfg = sim_images_config()
+    data = sim.generate(noise=False)
+    with tempfile.TemporaryDirectory(prefix="vio_euroc_") as seq:
+        t0 = time.perf_counter()
+        vio_io.write_euroc(data, seq, n_frames=N_EUROC_FRAMES)
+        write_s = time.perf_counter() - t0
+        back = vio_io.load_euroc(seq)
+        if not (np.array_equal(back.acc, data.acc) and np.array_equal(back.gyr, data.gyr)
+                and len(back.cam_t) == N_EUROC_FRAMES
+                and np.abs(back.imu_t - data.imu_t).max() <= 1e-9
+                and np.abs(back.cam_t - data.cam_t[:N_EUROC_FRAMES]).max() <= 1e-9):
+            raise AssertionError("EuRoC layout: load_euroc does not return phase 7's IMU "
+                                 "and stamps")
+        linsolve.gj_solve.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est, traj, _ = runner.run_euroc(seq, cfg, tracker=runner.make_tracker(cfg),
+                                        dtype=torch.float64)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = linsolve.gj_solve.launches
+    # the same rendered frames at the layout's nanosecond stamps, over the
+    # first N_TWIN_FRAMES (the estimator is causal)
+    rounded = dataclasses.replace(data, imu_t=back.imu_t, cam_t=np.concatenate(
+        [back.cam_t, data.cam_t[N_EUROC_FRAMES:]]))
+    _, twin = runner.run_images(runner.sim_image_frames(rounded, n_frames=N_TWIN_FRAMES),
+                                rounded.imu_t, rounded.acc, rounded.gyr, cfg,
+                                tracker=runner.make_tracker(cfg), dtype=torch.float64)
+    if not (est.initialized and est.failure_count == 0 and len(traj["t"]) > 0):
+        raise AssertionError(f"run_euroc: initialized {est.initialized}, "
+                             f"failure_count {est.failure_count}")
+    n_twin = len(twin["t"])
+    dp_twin = (np.abs(traj["p"][:n_twin] - twin["p"]).max(initial=0.0)
+               if np.array_equal(traj["t"][:n_twin], twin["t"])
+               and np.array_equal(traj["initialized"][:len(twin["initialized"])],
+                                  twin["initialized"]) and n_twin > 0 else np.inf)
+    ape = metrics.ape_rmse(traj["p"], back.gt_p[nearest_stamp(back.gt_t, traj["t"])])["rmse"]
+    want = sync["traj"]
+    n_pub = len(traj["initialized"])
+    i, j = np.nonzero(np.abs(traj["t"][:, None] - want["t"][None, :]) < 1e-6)
+    dp7 = np.abs(traj["p"][i] - want["p"][j]).max(initial=0.0)
+    first = (int(np.argmax(traj["initialized"])), int(np.argmax(want["initialized"])))
+    print(f"EuRoC layout: wrote {N_EUROC_FRAMES} frames in {write_s:.2f} s; run_euroc "
+          f"{n_pub} published, {len(traj['t'])} poses, APE rmse {ape:.6f} m against the "
+          f"written ground truth (bound {EUROC_APE} m) {tag}")
+    print(f"EuRoC layout: against run_images over the first {N_TWIN_FRAMES} frames at the "
+          f"layout's stamps ({n_twin} poses) max |dp| {dp_twin:.3e} m (bound "
+          f"{EUROC_TWIN_DP} m); against phase 7 "
+          f"(stamps not rounded): first pose at published frame {first[0]} and {first[1]}, "
+          f"{len(i)} poses at equal stamps, max |dp| {dp7:.3e} m {tag}")
+    print(f"EuRoC layout wall {N_EUROC_FRAMES / wall:.3f} frames/s ({wall:.2f} s, loading "
+          f"included), gj_solve launches {launches} {tag}")
+    if not dp_twin <= EUROC_TWIN_DP:
+        raise AssertionError(f"run_euroc: max |dp| {dp_twin} m from run_images at its stamps")
+    if not ape < EUROC_APE:
+        raise AssertionError(f"run_euroc: APE {ape} m >= {EUROC_APE} m")
+    if not (est.device.type == "cuda" and est.dtype == torch.float64 and launches > 0):
+        raise AssertionError(f"run_euroc: {est.device}, {est.dtype}, {launches} launches")
+    return launches
+
+
+def _stereo_pair(seed=0, n=40):
+    """tests/test_stereo.py::_make_stereo_pair: blobs spread over distinct
+    rows, shifted left by fx·b/Z in the right image."""
+    from vio_tpu_torch import sim
+    rng = np.random.default_rng(seed)
+    uv_l = np.stack([rng.uniform(80, 580, n),
+                     np.linspace(40, 600, n) + rng.uniform(-3, 3, n)], axis=1)
+    Z = rng.uniform(2.0, 12.0, n)
+    disp_gt = STEREO_FX * STEREO_BASELINE / Z
+    uv_r = uv_l.copy()
+    uv_r[:, 0] -= disp_gt
+    return sim.render_blobs(uv_l), sim.render_blobs(uv_r), uv_l, disp_gt
+
+
+def _chessboard_views(V=10, seed=3):
+    """tests/test_intrinsics.py::synth_views: V views of a 9×6 board of
+    3 cm squares through CHESS_TRUE's radtan camera."""
+    from vio_tpu_torch.utils import lie
+    T = CHESS_TRUE
+    rng = np.random.default_rng(seed)
+    bx, by = np.meshgrid(np.arange(9) * 0.03, np.arange(6) * 0.03)
+    board = np.stack([bx.ravel(), by.ravel()], axis=1)
+    p3 = np.concatenate([board, np.zeros((len(board), 1))], axis=1)
+    views = []
+    for _ in range(V):
+        w = rng.normal(0, 0.25, 3)
+        R = lie.so3_exp_mat(torch.as_tensor(w)).numpy()
+        t = np.array([-0.12 + 0.02 * rng.normal(), -0.08 + 0.02 * rng.normal(),
+                      0.55 + 0.1 * rng.random()])
+        pc = p3 @ R.T + t
+        xn, yn = pc[:, 0] / pc[:, 2], pc[:, 1] / pc[:, 2]
+        r2 = xn * xn + yn * yn
+        rad = 1 + T["k1"] * r2 + T["k2"] * r2 * r2
+        xd = xn * rad + 2 * T["p1"] * xn * yn + T["p2"] * (r2 + 2 * xn * xn)
+        yd = yn * rad + T["p1"] * (r2 + 2 * yn * yn) + 2 * T["p2"] * xn * yn
+        views.append(np.stack([T["fx"] * xd + T["cx"], T["fy"] * yd + T["cy"]], axis=1))
+    return board, np.stack(views)
+
+
+def _checker_board_image():
+    """tests/test_intrinsics.py's rendered, perspective-warped chessboard
+    (320×240) with its inner corners, and seeded starts within 0.7 px."""
+    sq = 24.0
+    Hm = np.array([[1.05, 0.08, 40.0], [-0.05, 0.98, 30.0], [1e-4, -8e-5, 1.0]])
+    Hi = np.linalg.inv(Hm)
+    u, v = np.meshgrid(np.arange(320, dtype=np.float64), np.arange(240, dtype=np.float64))
+    den = Hi[2, 0] * u + Hi[2, 1] * v + Hi[2, 2]
+    X = (Hi[0, 0] * u + Hi[0, 1] * v + Hi[0, 2]) / den
+    Y = (Hi[1, 0] * u + Hi[1, 1] * v + Hi[1, 2]) / den
+    img = 128 + 100 * np.tanh(6.0 * np.sin(np.pi * X / sq)) * np.tanh(6.0 * np.sin(np.pi * Y / sq))
+    pts = []
+    for i in range(1, 10):
+        for j in range(1, 7):
+            p = Hm @ np.array([i * sq, j * sq, 1.0])
+            p = p[:2] / p[2]
+            if 15 < p[0] < 320 - 15 and 15 < p[1] < 240 - 15:
+                pts.append(p)
+    pts = np.asarray(pts)
+    start = pts + np.random.default_rng(0).uniform(-0.7, 0.7, pts.shape)
+    return img.astype(np.float32), pts, start
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def _prior_invariants(o) -> dict:
+    """What two eigensolvers agree on in a prior (H, b, err, Jt_inv):
+    H·JtᵀJt·H, H·Jtᵀerr, and errᵀerr = bᵀ·pinv(H)·b over the directions
+    whose eigenvalue lies above MARG_GAP.  Row i of Jt_inv is v_i/√λ_i
+    for each eigenvalue λ_i kept above the 1e-8 cut (zero otherwise) and
+    err_i = -v_i·b/√λ_i, so the rows give the kept spectrum and each
+    direction's share of errᵀerr.  The Schur step leaves round-off of
+    machine epsilon times the eliminated block's largest eigenvalue in the
+    prior (7.2e13 · 2.2e-16 ≈ 1.6e-2 in make_window_problem(10, 256, 8)),
+    far above the cut, so which round-off eigenvalues are kept, and
+    their values, are the eigensolver's own."""
+    H, b, e, J = o
+    n2 = (J * J).sum(axis=1)
+    lam = np.where(n2 > 0, 1.0 / np.where(n2 > 0, n2, 1.0), 0.0)
+    common = lam > MARG_GAP
+    return dict(H=H, b=b, HJJH=H @ J.T @ J @ H, HJe=H @ (J.T @ e), ee=e @ e,
+                ee_common=e[common] @ e[common], kept=int((n2 > 0).sum()),
+                common=int(common.sum()), near=np.sort(lam[(n2 > 0) & ~common]))
+
+
+def device_functions_on_card(tag: str) -> None:
+    """Phase 19.  Each function on the card (float32 unless stated)
+    against the same function on the CPU in float64, at a stated
+    tolerance, and at its reference test's bounds."""
+    from vio_tpu_torch import testing
+    from vio_tpu_torch.calib import intrinsics
+    from vio_tpu_torch.features import stereo
+    from vio_tpu_torch.init import icp
+    from vio_tpu_torch.solver import marginalize as marg
+    from vio_tpu_torch.utils import lie
+
+    dev = torch.device("cuda")
+    f32 = dict(dtype=torch.float32, device=dev)
+    f64 = dict(dtype=torch.float64)
+
+    # stereo: images float32 on both sides, positions float32 / float64
+    left, right, uv_l, disp_gt = _stereo_pair()
+    valid = torch.ones(len(uv_l), dtype=torch.bool)
+    out = {}
+    for side, kw in (("card", f32), ("CPU", f64)):
+        t0 = time.perf_counter()
+        d, ok = stereo.disparity_from_flow(
+            torch.as_tensor(left, dtype=torch.float32, device=kw.get("device")),
+            torch.as_tensor(right, dtype=torch.float32, device=kw.get("device")),
+            torch.as_tensor(uv_l, **kw), valid.to(kw.get("device", "cpu")))
+        d, ok = d.double().cpu().numpy(), ok.cpu().numpy()
+        ms = 1e3 * (time.perf_counter() - t0)
+        err = np.abs(d[ok] - disp_gt[ok])
+        r = float(stereo.pearson(torch.as_tensor(d[ok]), torch.as_tensor(disp_gt[ok])))
+        out[side] = (d, ok)
+        print(f"stereo.disparity_from_flow {side}: {int(ok.sum())} of {len(ok)} ok, median "
+              f"error {np.median(err):.4f} px, Pearson {r:.6f}, {ms:.1f} ms {tag}")
+        if not (ok.sum() >= 0.8 * len(ok) and np.median(err) < 0.1 and r > 0.99):
+            raise AssertionError(f"stereo {side}: tests/test_stereo.py's bounds missed")
+    (dc, okc), (dh, okh) = out["card"], out["CPU"]
+    both = okc & okh
+    dd = float(np.abs(dc[both] - dh[both]).max())
+    print(f"stereo card against CPU: {int((okc != okh).sum())} ok on one side only, max "
+          f"|d disp| {dd:.3e} px (bounds {STEREO_FLIPS}, {STEREO_TOL} px) {tag}")
+    if int((okc != okh).sum()) > STEREO_FLIPS or not dd <= STEREO_TOL:
+        raise AssertionError("stereo: the card disagrees with the CPU")
+
+    # Umeyama and Gauss-Newton ICP: tests/test_components.py's cases
+    rng = np.random.default_rng(1)
+    src = rng.standard_normal((100, 3)) * 2.0
+    R_gt = lie.so3_exp_mat(torch.tensor([0.1, 0.3, -0.2], **f64)).numpy()
+    t_gt = np.array([0.5, 0.2, -0.7])
+    dst = src @ R_gt.T + t_gt + 0.01 * rng.standard_normal((100, 3))
+    R0 = lie.so3_exp_mat(torch.tensor([0.05, 0.0, 0.0], **f64)).numpy() @ R_gt
+    res = {}
+    for side, kw in (("card", f32), ("CPU", f64)):
+        a = [torch.as_tensor(x, **kw) for x in (src, dst, R0, t_gt + 0.1)]
+        Ru, tu = icp.umeyama(a[0], a[1])
+        Rg, tg, rms = icp.icp_gn(*a)
+        res[side] = [x.double().cpu().numpy() for x in (Ru, tu, Rg, tg)] + [float(rms)]
+    du = max(np.abs(c - h).max() for c, h in zip(res["card"][:2], res["CPU"][:2]))
+    dg = max(np.abs(c - h).max() for c, h in zip(res["card"][2:4], res["CPU"][2:4]))
+    Rg, tg, rms = res["card"][2:]
+    ang = np.degrees(np.arccos(np.clip((np.trace(R_gt.T @ Rg) - 1) / 2, -1, 1)))
+    print(f"icp card against CPU: umeyama max |d(R, t)| {du:.3e}, icp_gn {dg:.3e} (bound "
+          f"{ICP_TOL}); icp_gn on the card: {ang:.4f} deg, |t - t_gt| "
+          f"{np.linalg.norm(tg - t_gt):.4f} m, RMS {rms:.4f} m {tag}")
+    if not (du <= ICP_TOL and dg <= ICP_TOL and ang < 0.5
+            and np.linalg.norm(tg - t_gt) < 0.02 and rms < 0.03):
+        raise AssertionError("icp: the card disagrees with the CPU or misses the bounds")
+
+    # sub-pixel saddle refinement: float32 on both sides
+    img, pts, start = _checker_board_image()
+    ref_c = intrinsics.refine_corners_subpix(img, start, half=4, n_iter=4, device=dev)
+    ref_h = intrinsics.refine_corners_subpix(img, start, half=4, n_iter=4, device="cpu")
+    ref_c = ref_c.cpu().double().numpy()
+    d = float(np.abs(ref_c - ref_h.double().numpy()).max())
+    err = np.linalg.norm(ref_c - pts, axis=1)
+    print(f"refine_corners_subpix card against CPU: {len(pts)} corners, max |dp| {d:.3e} px "
+          f"(bound 1e-3); on the card mean error {err.mean():.4f} px, 90th pct "
+          f"{np.percentile(err, 90):.4f} px {tag}")
+    if not (d <= 1e-3 and err.mean() < 0.05 and np.percentile(err, 90) < 0.08):
+        raise AssertionError("refine_corners_subpix: the card disagrees or misses the bounds")
+
+    # marginalization: the device chain in float64 on the card against the
+    # host float64 chain on the CPU (P = 171)
+    shape = dict(window_size=10, max_features=256, imu_per_interval=8, perturb=0.0)
+    s64, f64w, _ = testing.make_window_problem(**shape, device=dev, dtype=torch.float64)
+    host = marg.marginalize_old_host(s64, f64w)
+    card = [x.cpu().numpy() for x in marg.marginalize_old(s64, f64w)]
+    fnew = f64w._replace(H_prior=torch.as_tensor(host[0], device=dev),
+                         b_prior=torch.as_tensor(host[1], device=dev))
+    card_new = [x.cpu().numpy() for x in marg.marginalize_new(fnew)]
+    host_new = marg.marginalize_new_host(host[0], host[1])
+
+    for name, c, h in (("marginalize_old", card, host), ("marginalize_new", card_new, host_new)):
+        ci, hi = _prior_invariants(c), _prior_invariants(h)
+        rel = {k: _rel(ci[k], hi[k]) for k in ("H", "b", "HJJH", "HJe", "ee", "ee_common")}
+        print(f"{name} float64 card against the host chain: " +
+              ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) +
+              f" (bounds {MARG_RTOL}, errᵀerr over the directions both keep {MARG_EE_RTOL}, "
+              f"errᵀerr over all kept printed) {tag}")
+        for side, i in (("card", ci), ("host", hi)):
+            print(f"{name} {side}: keeps {i['kept']} eigenvalues above the {marg.EPS} cut, "
+                  f"{i['common']} above {MARG_GAP}; kept below {MARG_GAP}: "
+                  f"{np.array2string(i['near'], precision=4)}, their errᵀerr "
+                  f"{i['ee'] - i['ee_common']:.4e} of {i['ee']:.4e} {tag}")
+        if not (max(rel[k] for k in ("H", "b", "HJJH", "HJe")) <= MARG_RTOL
+                and ci["common"] == hi["common"] and rel["ee_common"] <= MARG_EE_RTOL):
+            raise AssertionError(f"{name}: the card's float64 chain disagrees with the host's")
+    s32, f32w, _ = testing.make_window_problem(**shape, device=dev, dtype=torch.float32)
+    c32 = [x.double().cpu().numpy() for x in marg.marginalize_old(s32, f32w)]
+    if not all(np.all(np.isfinite(x)) for x in c32):
+        raise AssertionError("marginalize_old float32: not finite")
+    print(f"marginalize_old float32 on the card against the host float64 chain: H_prior "
+          f"{_rel(c32[0], host[0]):.3e}, b_prior {_rel(c32[1], host[1]):.3e} relative "
+          f"(not a prior: the float32 chain inverts round-off eigenvalues, as vio_tpu's "
+          f"float32 chain does; the estimator runs the host chain) {tag}")
+
+    # chessboard calibration on the card (float32 residuals, host LM)
+    board, views = _chessboard_views()
+    for name, pts2 in (("exact", views),
+                       ("noisy 0.2 px", views + np.random.default_rng(11).normal(
+                           0, 0.2, views.shape))):
+        t0 = time.perf_counter()
+        o = intrinsics.calibrate_chessboard(board, pts2)
+        ms = 1e3 * (time.perf_counter() - t0)
+        errs = {k: o[k] - CHESS_TRUE[k] for k in CHESS_TRUE}
+        print(f"calibrate_chessboard {name} on the card: " +
+              ", ".join(f"{k} {v:+.3e}" for k, v in errs.items()) +
+              f", RMS {o['reproj_rms_px']:.3e} px, {ms:.0f} ms {tag}")
+        if name == "exact":
+            ok = all(abs(errs[k]) < tol for k, tol in CHESS_EXACT) and o["reproj_rms_px"] < 1e-4
+        else:
+            ok = (abs(errs["fx"]) / CHESS_TRUE["fx"] < 0.01 and abs(errs["fy"]) / CHESS_TRUE["fy"] < 0.01
+                  and abs(errs["cx"]) < 3.0 and abs(errs["cy"]) < 3.0 and abs(errs["k1"]) < 0.02
+                  and 0.1 < o["reproj_rms_px"] < 0.35)
+        if not ok:
+            raise AssertionError(f"calibrate_chessboard {name}: tests/test_intrinsics.py's "
+                                 "bounds missed")
+
+
+def cli_on_card(tag: str) -> dict:
+    """Phase 20.  ``python -m vio_tpu_torch.cli`` as three processes at
+    once: ``run --dataset sim``, ``run --dataset hybrid`` on streams
+    written here, and ``sim --out``.  Returns the launches of each run,
+    read from its JSON line."""
+    import os
+    import tempfile
+
+    from vio_tpu_torch import io as vio_io
+    from vio_tpu_torch import sim, testing
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    with tempfile.TemporaryDirectory(prefix="vio_cli_") as tmp:
+        testing.write_hybrid_streams(sim.generate(noise=False), tmp, static_s=HYBRID_STATIC_S)
+        cmds = {
+            "run sim": ["run", "--dataset", "sim", "--frames", str(CLI_SIM_FRAMES)],
+            "run hybrid": ["run", "--dataset", "hybrid", "--path", tmp,
+                           "--frames", str(CLI_HYBRID_FRAMES)],
+            "sim --out": ["sim", "--out", os.path.join(tmp, "csv")],
+        }
+        logs = {k: (open(os.path.join(tmp, f"{i}.out"), "w+"),
+                    open(os.path.join(tmp, f"{i}.err"), "w+")) for i, k in enumerate(cmds)}
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen([sys.executable, "-m", "vio_tpu_torch.cli"] + v,
+                                     cwd=root, env=env, stdout=logs[k][0], stderr=logs[k][1],
+                                     text=True)
+                 for k, v in cmds.items()}
+        outs, walls = {}, {}
+        try:
+            while len(walls) < len(procs):          # each one's own end
+                for k, p in procs.items():
+                    if k not in walls and p.poll() is not None:
+                        walls[k] = time.perf_counter() - t0
+                if time.perf_counter() - t0 > CLI_TIMEOUT_S:
+                    raise AssertionError(f"cli: still running after {CLI_TIMEOUT_S} s")
+                time.sleep(0.05)
+            for k, p in procs.items():
+                out, err = (f.seek(0) or f.read() for f in logs[k])
+                if p.returncode != 0:
+                    raise AssertionError(f"cli {k}: exit {p.returncode}\n{err[-2000:]}")
+                outs[k] = out.strip().splitlines()
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in (f for pair in logs.values() for f in pair):
+                f.close()
+        ids, frames = vio_io.read_sim_keyframes(os.path.join(tmp, "csv"))
+    launches = {}
+    for k in ("run sim", "run hybrid"):
+        r = json.loads(outs[k][-1])
+        start = walls[k] - r["wall_s"]
+        print(f"cli {k}: {json.dumps(r)} {tag}")
+        print(f"cli {k}: process {walls[k]:.1f} s, of which outside the run (start, "
+              f"data, exit; three processes at once) {start:.1f} s {tag}")
+        want = "float32" if k == "run sim" else "float64"
+        if not (r["failures"] == 0 and r["device"].startswith("cuda") and r["dtype"] == want
+                and r["frames"] > 0 and r["gj_solve_launches"] > 0
+                and r["ape"]["rmse"] < CLI_APE):
+            raise AssertionError(f"cli {k}: {r} (bounds: poses, launches, APE < {CLI_APE} m)")
+        launches[f"cli {k} {want}"] = r["gj_solve_launches"]
+    print(f"cli sim --out: {len(frames)} keyframe files, {len(ids)} landmarks, process "
+          f"{walls['sim --out']:.1f} s {tag}")
+    if len(frames) != 600 or not ids:
+        raise AssertionError("cli sim --out: not the simulator's 600 keyframes")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. environment ----
@@ -1318,6 +1794,19 @@ def main() -> int:
     by_path.update(bal_paths(est.device, tag))
     by_path["direct_ba float32"] = direct_paths(est.device, tag)
     print(f"chip_smoke: phases 11-16 took {time.perf_counter() - t_scale:.0f} s {tag}")
+
+    # ---- 17-20. online td, the EuRoC layout, device functions, the CLI ----
+    for phase, label, run in (
+            (17, "online td", lambda: by_path.update(
+                {"online td float32": online_td_path(tag)})),
+            (18, "EuRoC layout", lambda: by_path.update(
+                {"run_euroc float64": euroc_layout_path(tag, sync)})),
+            (19, "device functions", lambda: device_functions_on_card(tag)),
+            (20, "the CLI", lambda: by_path.update(cli_on_card(tag)))):
+        t_phase = time.perf_counter()
+        run()
+        print(f"chip_smoke: phase {phase} ({label}) took "
+              f"{time.perf_counter() - t_phase:.1f} s {tag}")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s {tag}")
 

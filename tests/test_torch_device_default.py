@@ -8,18 +8,20 @@ import numpy as np
 import pytest
 import torch
 
-from vio_tpu_torch import checkpoint, convert, runner, sim, testing
+from vio_tpu_torch import checkpoint, cli, convert, hybrid, runner, sim, testing
+from vio_tpu_torch import io as vio_io
+from vio_tpu_torch.calib import allan, intrinsics
 from vio_tpu_torch.camera import PinholeCamera
 from vio_tpu_torch.config import sim_config, sim_images_config
 from vio_tpu_torch.device import resolve
 from vio_tpu_torch.estimator import Estimator
-from vio_tpu_torch.features import clahe, detect, direct, klt, pyramid
+from vio_tpu_torch.features import clahe, detect, direct, klt, pyramid, stereo
 from vio_tpu_torch.features.tracker import FeatureTracker
-from vio_tpu_torch.init import sfm
+from vio_tpu_torch.init import icp, sfm
 from vio_tpu_torch.loop import posegraph, vocab
 from vio_tpu_torch.loop.closer import LoopCloser
 from vio_tpu_torch.parallel import global_ba, sharded
-from vio_tpu_torch.solver import bal, frame_step
+from vio_tpu_torch.solver import bal, frame_step, marginalize
 
 torch.set_num_threads(1)
 
@@ -149,7 +151,11 @@ def test_inner_functions_keep_no_device_default(fn):
     pyramid.patch_sample_multi, klt.track, klt.track_fb, klt.sample_templates,
     klt.refine_on_templates, klt._patch_grid, klt._gauss_weights,
     detect.shi_tomasi_response, detect.detect, detect.occupancy_from_points,
-    clahe.clahe, PinholeCamera.lift, PinholeCamera.project],
+    clahe.clahe, PinholeCamera.lift, PinholeCamera.project,
+    stereo.disparity_from_flow, stereo.disparity_to_pointcloud,
+    stereo.points_to_pointcloud, stereo.pearson, icp.umeyama, icp.icp_gn,
+    marginalize.marginalize_old, marginalize.marginalize_new,
+    marginalize.marginalize_old_host],
     ids=lambda f: f.__qualname__)
 def test_frontend_functions_take_the_device_from_their_inputs(fn):
     """No frontend function below the entry points has a device or dtype
@@ -164,7 +170,8 @@ def test_frontend_functions_take_the_device_from_their_inputs(fn):
 
 @pytest.mark.parametrize("entry", [FeatureTracker.__init__, runner.make_tracker,
                                    runner.run_images, runner.run_images_async,
-                                   runner.run_sim, Estimator.__init__,
+                                   runner.run_sim, runner.run_euroc, Estimator.__init__,
+                                   intrinsics.calibrate_chessboard,
                                    LoopCloser.__init__, LoopCloser.load, checkpoint.load,
                                    global_ba.solve, global_ba.solve_sharded,
                                    sharded.solve_window_sharded, sharded.training_step,
@@ -212,3 +219,37 @@ def test_scale_out_entry_points_run_on_an_explicit_cpu():
     out, _ = global_ba.solve(p, max_iter=2, fix_frames=2, device="cpu",
                              dtype=torch.float32)
     assert out.Ps.dtype == torch.float32
+
+
+def test_host_only_calibration_and_datasets_take_no_device():
+    """The Allan fit is host float64, as in vio_tpu; the hybrid builder and
+    the dataset IO are numpy: none of them touches a device."""
+    for fn in (allan.fit_allan_params, allan.calibrate, allan.allan_variance,
+               hybrid.generate_hybrid, vio_io.load_euroc, vio_io.write_euroc):
+        assert not {"device", "dtype"} & set(inspect.signature(fn).parameters), fn
+
+
+def test_refine_corners_defaults_to_the_card():
+    """Images and corners are float32 everywhere, so it takes a device only."""
+    params = inspect.signature(intrinsics.refine_corners_subpix).parameters
+    assert params["device"].default is None and "dtype" not in params
+
+
+def test_run_euroc_cli_and_calibration_raise_without_a_card(no_card, data, monkeypatch, tmp_path):
+    """Each raises before any frame is read or tracked: run_euroc, the
+    CLI's default --device, and the chessboard calibration and corner
+    refinement."""
+    monkeypatch.setattr(vio_io, "load_image", _no_frame)
+    monkeypatch.setattr(FeatureTracker, "read_image", _no_frame)
+    monkeypatch.setattr(Estimator, "process_image", _no_frame)
+    seq = str(tmp_path / "seq")
+    vio_io.write_euroc(data, seq, n_frames=3, render_kw=dict(height=32, width=32))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        runner.run_euroc(seq)
+    for argv in (["run", "--frames", "3"], ["run", "--dataset", "euroc", "--path", seq]):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            cli.main(argv)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        intrinsics.calibrate_chessboard(np.zeros((4, 2)), np.zeros((3, 4, 2)))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        intrinsics.refine_corners_subpix(np.zeros((32, 32)), np.zeros((1, 2)))

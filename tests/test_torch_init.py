@@ -5,6 +5,7 @@ uses, in float64.  Deterministic geometry agrees to round-off (atol
 1e-9); the RANSAC-based solves draw from different generators, so on
 clean data they agree through the consensus refit (atol 1e-7 on R, on the
 direction of t)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,6 +93,26 @@ def test_solve_relative_rt_matches_jax():
     Rrel = tsfm.relative_rotation(obs[0], obs[1], **CPU64)
     np.testing.assert_allclose(Rrel, jsfm.relative_rotation(obs[0], obs[1]),
                                rtol=0, atol=1e-7)
+
+
+def test_essential_ransac_ignores_non_finite_rows_outside_valid():
+    """The tracker passes the NaN lift of a failed track in a row outside
+    ``valid``: the port's RANSAC gives the result it gives with that row
+    zeroed.  (vio_tpu returns no inliers there: NaN·0 reaches every
+    hypothesis.)"""
+    pts, Rs, ts, obs = _scene(n_frames=2)
+    x0, x1 = obs[0].copy(), obs[1].copy()
+    valid = np.ones(len(pts), bool)
+    valid[3] = False
+    clean = tsfm.essential_ransac(T(x0), T(x1), T(valid), torch.Generator().manual_seed(0))
+    x1[3] = np.nan
+    out = tsfm.essential_ransac(T(x0), T(x1), T(valid), torch.Generator().manual_seed(0))
+    for a, b in zip(out, clean):
+        assert torch.equal(a, b)
+    assert int(out[2]) == len(pts) - 1
+    _, _, n_j = jsfm.essential_ransac(jnp.asarray(x0), jnp.asarray(x1), jnp.asarray(valid),
+                                      jax.random.PRNGKey(0))
+    assert int(n_j) == 0
 
 
 def test_construct_matches_jax():

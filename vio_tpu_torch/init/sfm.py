@@ -163,8 +163,14 @@ def essential_ransac(x0, x1, valid, generator: torch.Generator,
     valid (N,) which rows are real.  Minimal 8-point samples are drawn
     without replacement from the valid rows by ``generator`` (a CPU
     generator).  thresh follows the reference's
-    cv::findFundamentalMat(..., 0.3 / 460, 0.99) (solve_5pts.cpp:199)."""
+    cv::findFundamentalMat(..., 0.3 / 460, 0.99) (solve_5pts.cpp:199).
+    Rows outside ``valid`` are zeroed first: the tracker passes the lifts
+    of failed tracks, which can be NaN, and NaN·0 would reach every
+    hypothesis's SVD, which torch refuses (in vio_tpu it turns every
+    hypothesis to NaN, so that frame keeps its outliers)."""
     N = x0.shape[0]
+    x0 = torch.where(valid[:, None], x0, 0.0)
+    x1 = torch.where(valid[:, None], x1, 0.0)
     p = valid.to(device="cpu", dtype=torch.float64) + 1e-9
     idx = torch.multinomial(p.expand(n_hyp, N), 8, replacement=False,
                             generator=generator).to(x0.device)  # (n_hyp, 8)

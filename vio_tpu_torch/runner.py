@@ -353,3 +353,28 @@ def sim_image_frames(data, n_frames: int | None = None, **render_kw):
     for k in range(n):
         yield float(data.cam_t[k]), (
             lambda kk=k: sim_mod.render_image(data, kk, **render_kw))
+
+
+def run_euroc(seq_dir: str, cfg: VioConfig | None = None,
+              n_frames: int | None = None, progress=False, tracker=None,
+              device=None, dtype=None):
+    """Play a EuRoC ASL sequence end to end through ``run_images``
+    (run_euroc.cpp analog); ``cfg`` defaults to ``euroc_config()``.
+    ``tracker``, ``device`` and ``dtype`` as ``run_images``.  Returns
+    (est, traj, data)."""
+    from . import io as vio_io
+    if cfg is None:
+        from .config import euroc_config
+        cfg = euroc_config()
+    data = vio_io.load_euroc(seq_dir)
+
+    def frames():
+        n = len(data.cam_t) if n_frames is None else min(n_frames, len(data.cam_t))
+        for k in range(n):
+            yield float(data.cam_t[k]), (
+                lambda kk=k: vio_io.load_image(data.cam_files[kk]))
+
+    est, traj = run_images(frames(), data.imu_t, data.acc, data.gyr, cfg,
+                           tracker=tracker, progress=progress, device=device,
+                           dtype=dtype)
+    return est, traj, data

@@ -6,7 +6,8 @@ numpy from the same ``default_rng`` streams as the JAX package, so that,
 given the same arguments, both packages build the same problem to
 round-off; the rotations go through the port's ``utils/lie``.  The
 builders are entry points: without ``device`` the problem lands on the
-card (``device.resolve``).
+card (``device.resolve``).  ``write_hybrid_streams`` writes the raw IMU
+and camera-stamp files the hybrid dataset reads, from a simulator run.
 """
 from __future__ import annotations
 
@@ -210,3 +211,30 @@ def perturb_global(p, seed=1, pose_sigma=0.03, rot_sigma=0.01,
     rel = 1.0 + dep_sigma * rng.standard_normal(p.inv_dep.shape[0])
     return p._replace(Ps=p.Ps + torch.as_tensor(dP, **kw), Qs=Qs,
                       inv_dep=p.inv_dep * torch.as_tensor(rel, **kw))
+
+
+def write_hybrid_streams(data, out_dir: str, static_s: float = 2.0,
+                         cam_hz: float = 20.0):
+    """MH_05_imu0.txt / MH_05_cam0.txt (``io.load_imu_txt``'s and
+    ``io.load_cam_stamps_txt``'s formats) in ``out_dir``: ``static_s``
+    seconds at rest (gravity's specific force in the body frame, zero
+    rates) at the simulator's IMU rate, then the simulator's stream
+    ``data`` shifted after it; camera stamps at ``cam_hz`` over both.
+    The streams the reference's flagship reads are not in the repository;
+    these stand in for them.  Returns the written (t, acc, gyr), t from 0."""
+    m0 = sim.motion_model(data.imu_t[:1])
+    dt = data.imu_t[1] - data.imu_t[0]
+    n0 = int(round(static_s / dt))
+    acc0 = -m0["R_wb"][0].T @ sim.GRAVITY_W
+    t = np.concatenate([np.arange(n0) * dt, data.imu_t - data.imu_t[0] + n0 * dt])
+    acc = np.concatenate([np.tile(acc0, (n0, 1)), data.acc])
+    gyr = np.concatenate([np.zeros((n0, 3)), data.gyr])
+    ns = np.round((t + 1.0) * 1e9).astype(np.int64)
+    with open(f"{out_dir}/MH_05_imu0.txt", "w") as fh:
+        for k in range(len(t)):
+            fh.write(" ".join([str(ns[k])] + [repr(float(v)) for v in
+                                              (*gyr[k], *acc[k])]) + "\n")
+    with open(f"{out_dir}/MH_05_cam0.txt", "w") as fh:
+        for s in np.round((np.arange(0.0, t[-1], 1.0 / cam_hz) + 1.0) * 1e9).astype(np.int64):
+            fh.write(f"{s} {s}.png\n")
+    return t, acc, gyr
