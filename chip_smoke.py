@@ -152,18 +152,28 @@ them.  Phases, each of which raises on failure:
    simulator with a 2 s static prefix (80 frames: 40 would all fall in the
    prefix at the hybrid's 20 Hz), and ``sim --out``, three processes at
    once, each JSON line parsed and held: both runs on the card in their
-   precision, with poses, kernel launches, no failure and APE < 0.01 m.
+   precision, with poses, kernel launches, no failure and APE < 0.01 m;
+21. the bench: ``python -m vio_tpu_torch.cli bench`` in a process of its
+   own at the default budget (185 s after the build), its details written
+   to a temporary file; started beside phase 10 to stay inside the time
+   limit, so its times are not the bench's record.  Held: exit 0, the headline ``window_ba_solve_fps``
+   as the first line, no stage recorded as an error or skipped, the window
+   solve's 10 LM iterations, its device time summed over the profiler's
+   CUDA events and over ``key_averages()`` within 1 %, the end-to-end run
+   initialized, and ``gj_solve`` launched in the F=256 and F=1024 window
+   stages and the global BA.  The headline and the details are printed.
 
 Times are printed and recorded, never asserted.  The line before the last
 is the kernels' JSON record, whose ``launches`` sums the launches of
-phases 5, 7, 9, 10, 11-16, 17, 18 and 20 (the count is set to 0 just
+phases 5, 7, 9, 10, 11-16, 17, 18, 20 and 21 (the count is set to 0 just
 before each path and read just after; in phases 13-14 each rank counts
-its own and the ranks' counts are summed; in phase 20 each process
-reports its own in its JSON line); the last line is ``{"ok": true,
-"device": {...}}``.
+its own and the ranks' counts are summed; in phases 20 and 21 each
+process reports its own, in its JSON line or its details); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import datetime
 import json
@@ -223,6 +233,8 @@ HYBRID_STATIC_S = 2.0          # s at rest before the simulator's motion (phase 
 CLI_SIM_FRAMES, CLI_HYBRID_FRAMES = 40, 80
 CLI_APE = 0.01                 # m; tests/test_torch_cli_viz.py's bound on the sim run
 CLI_TIMEOUT_S = 400
+BENCH_TIMEOUT_S = 900          # from its start beside phase 10; its budget is 185 s
+BENCH_KERNEL_STAGES = ("window_ba", "window_ba_F1024_euroc_shape", "global_ba_100kf")
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory,
 # float32 and float64 outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -1636,6 +1648,83 @@ def cli_on_card(tag: str) -> dict:
     return launches
 
 
+class BenchProcess:
+    """Phase 21: ``python -m vio_tpu_torch.cli bench`` as a process of its
+    own at the default budget.  It is started beside phase 10, the longest
+    phase, so that the script stays inside its time limit, and checked
+    after phase 20; its times therefore share the host and the card with
+    phase 10 and are not the bench's record (a run of its own is).  A
+    process still running when the script exits is killed."""
+
+    def __init__(self):
+        import os
+        import tempfile
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("VIO_BENCH_FULL", "VIO_BENCH_BUDGET_S")}
+        env["PYTHONPATH"] = root
+        self.tmp = tempfile.mkdtemp(prefix="vio_bench_")
+        self.details = os.path.join(self.tmp, "details.json")
+        self.out = open(os.path.join(self.tmp, "out"), "w+")
+        self.err = open(os.path.join(self.tmp, "err"), "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", "vio_tpu_torch.cli", "bench",
+                                      "--details", self.details], cwd=root, env=env,
+                                     stdout=self.out, stderr=self.err, text=True)
+        atexit.register(self.close)
+
+    def close(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        self.err.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def check(self, tag: str) -> dict:
+        """Wait for the process and hold its output.  Returns the launches
+        of the stages that solve, read from its details."""
+        left = BENCH_TIMEOUT_S - (time.perf_counter() - self.t0)
+        try:
+            rc = self.proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"bench: still running after {BENCH_TIMEOUT_S} s") from None
+        out, err = (f.seek(0) or f.read() for f in (self.out, self.err))
+        if rc != 0:
+            raise AssertionError(f"bench: exit {rc}\n{out[-2000:]}\n{err[-3000:]}")
+        with open(self.details) as fh:
+            d = json.load(fh)
+        head = json.loads(out.splitlines()[0])
+        print(f"bench headline: {json.dumps(head)} {tag}")
+        print(f"bench details: {json.dumps(d)} {tag}")
+        print(f"bench: ran beside phase 10, stages {d['total_wall_s']:.1f} s after a build "
+              f"of {d['build_s']} s {tag}")
+        if set(head) != {"metric", "value", "unit", "vs_baseline"} or \
+                head["metric"] != "window_ba_solve_fps" or not head["value"] > 0:
+            raise AssertionError(f"bench: the first line is not the headline: {head}")
+        bad = {k: v for k, v in d.items()
+               if isinstance(v, str) and v.startswith(("error", "skipped"))}
+        if bad:
+            raise AssertionError(f"bench: stages failed or skipped: {bad}")
+        e2e = d.get("e2e_sim_120frames") or d.get("e2e_sim_60frames")   # the budget's choice
+        if not (d["window_ba_lm_iterations"] == 10 and isinstance(e2e, dict)
+                and e2e["initialized"] and d["device"].startswith("cuda")
+                and d["dtype"] == "float32"):
+            raise AssertionError("bench: not 10 LM iterations in float32 on the card, or the "
+                                 "end-to-end run did not initialize")
+        sums = (d["window_ba_device_ms_per_solve"], d["window_ba_device_ms_per_solve_key_averages"])
+        if not abs(sums[0] - sums[1]) <= 0.01 * sums[0]:
+            raise AssertionError(f"bench: the profiler's two device-time sums disagree: {sums}")
+        by_stage = d["gj_solve_launches_by_stage"]
+        if not all(by_stage.get(k, 0) > 0 for k in BENCH_KERNEL_STAGES):
+            raise AssertionError(f"bench: gj_solve did not launch in {BENCH_KERNEL_STAGES}: "
+                                 f"{by_stage}")
+        return {f"bench {k} float32": n for k, n in by_stage.items() if n}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. environment ----
@@ -1780,6 +1869,7 @@ def main() -> int:
     # ---- 9-10. the async image path and loop closing ----
     async_launches = async_image_path(None, tag, sync)
     orb_on_card_against_cpu(est.device, tag)
+    bench = BenchProcess()         # phase 21, beside phase 10
     loop_launches = loop_closing_path(None, tag, LOOP_DTYPE)
 
     # ---- 11-16. scale-out: global BA, distributed, window split, BAL, direct ----
@@ -1795,14 +1885,15 @@ def main() -> int:
     by_path["direct_ba float32"] = direct_paths(est.device, tag)
     print(f"chip_smoke: phases 11-16 took {time.perf_counter() - t_scale:.0f} s {tag}")
 
-    # ---- 17-20. online td, the EuRoC layout, device functions, the CLI ----
+    # ---- 17-21. online td, the EuRoC layout, device functions, the CLI, the bench ----
     for phase, label, run in (
             (17, "online td", lambda: by_path.update(
                 {"online td float32": online_td_path(tag)})),
             (18, "EuRoC layout", lambda: by_path.update(
                 {"run_euroc float64": euroc_layout_path(tag, sync)})),
             (19, "device functions", lambda: device_functions_on_card(tag)),
-            (20, "the CLI", lambda: by_path.update(cli_on_card(tag)))):
+            (20, "the CLI", lambda: by_path.update(cli_on_card(tag))),
+            (21, "the bench", lambda: by_path.update(bench.check(tag)))):
         t_phase = time.perf_counter()
         run()
         print(f"chip_smoke: phase {phase} ({label}) took "

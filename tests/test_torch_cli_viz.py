@@ -13,7 +13,7 @@ import torch
 from vio_tpu import io as jio
 from vio_tpu import runner as jrunner
 from vio_tpu import sim as jsim
-from vio_tpu_torch import cli, io as tio, viz
+from vio_tpu_torch import bench, cli, io as tio, viz
 from vio_tpu_torch.calib import allan
 from vio_tpu_torch.solver.generic import LMLog
 
@@ -72,6 +72,24 @@ def test_cli_profile_writes_a_chrome_trace(capsys, tmp_path):
 def test_cli_hybrid_needs_a_path():
     with pytest.raises(SystemExit, match="--path"):
         cli.main(["run", "--dataset", "hybrid", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["bench", "--device", "cpu"], ("cpu", bench.DETAILS)),
+    (["bench", "--device", "cpu", "--details", "d.json"], ("cpu", "d.json")),
+    (["bench"], (None, bench.DETAILS))], ids=["cpu", "details", "default"])
+def test_cli_bench_parses(monkeypatch, argv, want):
+    """``bench`` hands its device and details file to bench.main; a non-zero
+    return (a stage failed) becomes the process's exit code."""
+    calls = []
+    monkeypatch.setattr(bench, "main", lambda device, details_path: calls.append(
+        (device, details_path)) or 0)
+    cli.main(argv)
+    assert calls == [want]
+    monkeypatch.setattr(bench, "main", lambda device, details_path: 1)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv)
+    assert exc.value.code == 1
 
 
 def _png(path):

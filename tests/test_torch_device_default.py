@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from vio_tpu_torch import checkpoint, cli, convert, hybrid, runner, sim, testing
+from vio_tpu_torch import bench, checkpoint, cli, convert, hybrid, runner, sim, testing
 from vio_tpu_torch import io as vio_io
 from vio_tpu_torch.calib import allan, intrinsics
 from vio_tpu_torch.camera import PinholeCamera
@@ -178,7 +178,12 @@ def test_frontend_functions_take_the_device_from_their_inputs(fn):
                                    bal.solve, bal.load_bal, direct.direct_ba,
                                    direct.direct_pose_estimation,
                                    testing.make_global_problem,
-                                   testing.make_window_problem],
+                                   testing.make_window_problem,
+                                   bench.window_problem, bench.bench_window,
+                                   bench.klt_inputs, bench.bench_klt,
+                                   bench.global_problem, bench.global_solve,
+                                   bench.bench_global_ba, bench.bench_e2e_sim,
+                                   bench.bench_fp32_ape],
                          ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(entry):
     params = inspect.signature(entry).parameters
@@ -253,3 +258,22 @@ def test_run_euroc_cli_and_calibration_raise_without_a_card(no_card, data, monke
         intrinsics.calibrate_chessboard(np.zeros((4, 2)), np.zeros((3, 4, 2)))
     with pytest.raises(RuntimeError, match='device="cpu"'):
         intrinsics.refine_corners_subpix(np.zeros((32, 32)), np.zeros((1, 2)))
+
+
+@pytest.mark.parametrize("call", [
+    lambda: bench.main(), lambda: cli.main(["bench"]), lambda: bench.host_roundtrip_ms(),
+    lambda: bench.window_problem(8), lambda: bench.bench_window(8),
+    lambda: bench.klt_inputs(), lambda: bench.bench_klt(), lambda: bench.global_problem(),
+    lambda: bench.global_solve(None), lambda: bench.bench_global_ba(),
+    lambda: bench.bench_e2e_sim(), lambda: bench.bench_fp32_ape()],
+    ids=["main", "cli bench", "host_roundtrip_ms", "window_problem", "bench_window",
+         "klt_inputs", "bench_klt", "global_problem", "global_solve", "bench_global_ba",
+         "bench_e2e_sim", "bench_fp32_ape"])
+def test_bench_raises_without_a_card(no_card, monkeypatch, tmp_path, call):
+    """The bench and each of its stages raise before any work: no details
+    file is written and no simulator run starts."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sim, "generate", _no_frame)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+    assert not (tmp_path / bench.DETAILS).exists()

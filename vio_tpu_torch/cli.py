@@ -6,6 +6,8 @@ run_vio_simulation.cpp, simulator/src/main.cpp):
 
   run — play a dataset through the estimator, dump TUM trajectory + APE
   sim — generate the analytic dataset (optionally reference-format CSVs)
+  bench — time the bench's stages (the port's ``bench.py``): the headline
+          JSON line first, the details merged into ``--details``
 
 The device work runs on the CUDA device unless ``--device cpu`` is given
 (``device.resolve``).  The estimator's dtype is float32 on the card for
@@ -170,6 +172,13 @@ def cmd_sim(args):
         print(f"wrote reference-format CSVs to {args.out}")
 
 
+def cmd_bench(args):
+    from . import bench
+    rc = bench.main(device=args.device, details_path=args.details or bench.DETAILS)
+    if rc:
+        raise SystemExit(rc)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="vio_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -200,6 +209,15 @@ def main(argv=None):
     p.add_argument("--pixel-noise", type=float, default=0.0)
     p.add_argument("--out", default=None, help="reference-format CSV dir")
     p.set_defaults(fn=cmd_sim)
+
+    p = sub.add_parser("bench", help="time the bench's stages (window LM, KLT, "
+                                     "global BA, end to end)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA device, float32; raises "
+                        "without one); cpu runs float64 with no device times")
+    p.add_argument("--details", default=None,
+                   help="details JSON, merged into (default: BENCH_TORCH_DETAILS.json)")
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     args.fn(args)
