@@ -22,7 +22,16 @@ them.  Phases, each of which raises on failure:
 5. simulation main path: vio_tpu_torch.runner.run_sim over 150 noise-free
    frames of the simulator at sim_config() (W=10, F=256, P=171) in float32
    on the card (the default device), held to tests/test_e2e_sim.py's
-   bounds, counting the kernel's launches;
+   bounds, counting the kernel's launches.  The estimator runs each frame
+   as captured CUDA graphs (solver/graph.py): the launches are those the
+   replays made, and the graphs captured, the seconds capturing, the
+   replays and the host reads per frame are printed;
+22. graphs against eager, right after phase 5: the inputs phase 5 gave
+   its first 8 post-init frames, each through the eager
+   ``frame_step.frame_step`` on the card, held to the graphed frame's
+   output: the same LM iterations, every state within float32 round-off
+   (GRAPH_RTOL of each leaf's largest entry + GRAPH_ATOL); the largest
+   difference is printed;
 6. frontend functions, card against CPU: ``klt.track_fb``,
    ``klt.sample_templates`` + ``klt.refine_on_templates``,
    ``detect.detect`` and ``clahe.clahe`` on one rendered 640×640 frame
@@ -163,7 +172,8 @@ them.  Phases, each of which raises on failure:
    initialized, and ``gj_solve`` launched in the F=256 and F=1024 window
    stages and the global BA.  The headline and the details are printed.
 
-Times are printed and recorded, never asserted.  The line before the last
+Times are printed and recorded, never asserted.  The script's own time is
+printed after the last phase.  The line before the last
 is the kernels' JSON record, whose ``launches`` sums the launches of
 phases 5, 7, 9, 10, 11-16, 17, 18, 20 and 21 (the count is set to 0 just
 before each path and read just after; in phases 13-14 each rank counts
@@ -194,6 +204,11 @@ import torch
 SIZES = (1, 2, 17, 33, 171, 300, 384, 441, 600, 1023, 1024)
 MAIN_P = 171
 N_FRAMES = 150
+N_GRAPH_FRAMES = 8             # phase 22: post-init frames replayed eagerly
+# phase 22: eager and graphed frames run the same kernels in the same
+# order (a difference is expected to be 0); the bound is float32 round-off
+# of an LM solve relative to each leaf's largest entry
+GRAPH_RTOL, GRAPH_ATOL = 1e-5, 1e-6
 N_IMAGE_FRAMES = 155
 N_CLAHE_FRAMES = 30
 N_LOOP_FRAMES = 600
@@ -917,7 +932,7 @@ def dist_worker(rank: int, world: int, backend: str, port: int, devices, jobs, q
             (out, _, _, st), wall, launches = counted(lambda: sharded.solve_window_sharded(
                 ls, lf, max_iter=10, device=dev))
             res["window"] = dict(Ps=out.Ps.double().cpu().numpy(), chi2=float(st["chi2"]),
-                                 iterations=st["iterations"], bytes=st["allreduce_bytes"],
+                                 iterations=int(st["iterations"]), bytes=st["allreduce_bytes"],
                                  wall=wall, launches=launches)
         dist.destroy_process_group()
         queue.put((rank, res))
@@ -1019,7 +1034,7 @@ def distributed_paths(tag: str) -> dict:
     dP = float(np.abs(w[0]["Ps"] - ref.Ps.double().cpu().numpy()).max())
     launches["solve_window_sharded 2 ranks gloo float32"] = sum(r["launches"] for r in w)
     print(f"solve_window_sharded 2 ranks gloo: P=171, {w[0]['iterations']} iterations "
-          f"(solve_window {st['iterations']}), chi2 {w[0]['chi2']:.6e} (solve_window "
+          f"(solve_window {int(st['iterations'])}), chi2 {w[0]['chi2']:.6e} (solve_window "
           f"{float(st['chi2']):.6e}), max |dP| against solve_window {dP:.3e} m, wall "
           f"{max(r['wall'] for r in w):.3f} s, all_reduce of {w[0]['bytes']} bytes, gj_solve "
           f"launches {[r['launches'] for r in w]} (solve_window {linsolve.gj_solve.launches}) {tag}")
@@ -1735,6 +1750,7 @@ def main() -> int:
     from vio_tpu_torch import metrics, runner, sim
     from vio_tpu_torch.config import sim_config
     from vio_tpu_torch.ops import _build, linsolve
+    from vio_tpu_torch.solver import frame_step, graph
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1828,13 +1844,27 @@ def main() -> int:
     # ---- 5. the main path on the card (the default device) ----
     cfg = sim_config()
     data = sim.generate(noise=False)
+    frames = []                    # phase 22's inputs, and the graphed outputs
+    graphed = frame_step.frame_step_graphed
+
+    def recording(*args, **kw):
+        out = graphed(*args, **kw)
+        frames.append((args, kw, out))
+        return out
+
+    frame_step.frame_step_graphed = recording
+    graph.reset_stats()
     linsolve.gj_solve.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    est, traj = runner.run_sim(data, cfg, n_frames=N_FRAMES)
+    try:
+        est, traj = runner.run_sim(data, cfg, n_frames=N_FRAMES)
+    finally:
+        frame_step.frame_step_graphed = graphed
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = linsolve.gj_solve.launches
+    gst = dict(graph.STATS)
 
     iters = sum(t["iterations"] for t in est.telemetry)
     solve_ms = [t["solve_ms"] for t in est.telemetry]
@@ -1860,6 +1890,42 @@ def main() -> int:
     print(f"main path wall {N_FRAMES / wall:.3f} frames/s ({wall:.2f} s) {tag}")
     print(f"main path median solve_ms {statistics.median(solve_ms):.3f} {tag}")
     print(f"main path gj_solve launches {launches} {tag}")
+    n_solves = max(len(est.telemetry), 1)
+    if not (len(frames) == len(est.telemetry) and gst.get("replays", 0) > 0):
+        raise AssertionError(f"the estimator did not replay graphs: {gst}")
+    # one solve an attempt (P=171 float32, the register regime): every
+    # launch is a replayed attempt's
+    if launches != gst["attempts"]:
+        raise AssertionError(f"gj_solve launches {launches} are not the replayed "
+                             f"attempts: {gst}")
+    print(f"main path graphs: {gst.get('keys', 0)} keys, {gst.get('captures', 0)} graphs "
+          f"captured in {gst.get('capture_s', 0.0):.2f} s (pools "
+          f"{gst.get('pool_bytes', 0) / 2**20:.1f} MiB); per frame "
+          f"{gst['replays'] / n_solves:.2f} replays, {gst['reads'] / n_solves:.2f} reads, "
+          f"{gst['attempts'] / n_solves:.2f} attempts (K={graph.CHUNK}) {tag}")
+
+    # ---- 22. graphs against eager: phase 5's frames through frame_step ----
+    t_phase = time.perf_counter()
+    worst, n_cmp = 0.0, 0
+    for args, kw, out in frames[:N_GRAPH_FRAMES]:
+        ref = frame_step.fetch(frame_step.frame_step(*args, **kw))
+        if int(ref.iterations) != int(out.iterations):
+            raise AssertionError(f"graph against eager: {out.iterations} iterations, "
+                                 f"eager {int(ref.iterations)}")
+        for name, a, b in zip(ref.states._fields, out.states, ref.states):
+            a, b = np.asarray(a), np.asarray(b)
+            d = float(np.abs(a - b).max())
+            worst = max(worst, d)
+            if not d <= GRAPH_ATOL + GRAPH_RTOL * float(np.abs(b).max()):
+                raise AssertionError(f"graph against eager: {name} differs by {d:.3e}")
+        n_cmp += 1
+    if n_cmp < 5:
+        raise AssertionError(f"graph against eager: only {n_cmp} post-init frames")
+    print(f"graph against eager: {n_cmp} post-init frames, the same iterations, largest "
+          f"|d state| {worst:.3e} (bound rtol {GRAPH_RTOL} of the leaf + atol {GRAPH_ATOL}) "
+          f"{tag}")
+    print(f"chip_smoke: phase 22 (graphs against eager) took "
+          f"{time.perf_counter() - t_phase:.1f} s {tag}")
 
     # ---- 6-8. the image frontend and the image main path ----
     frontend_on_card_against_cpu(est.device, tag)

@@ -78,8 +78,8 @@ def one(F: int, device, dtype) -> dict:
     for k, (c, t) in sorted(ops.items(), key=lambda kv: -kv[1][1])[:TOP]:
         print(f"  {k}: {c} calls, {t:.3f} ms host")
     shapes = MatmulShapes()
-    with shapes:
-        step()
+    with shapes:     # eagerly: a graph's replay dispatches no operator
+        bench.window_solve(states, f, pert, n_obs, eager=True)
     print(f"F={F}: aten.mm {sum(shapes.flops.values()) / 1e9:.3f} GFLOP a solve, by (m, k, n):")
     for (m, k, n), fl in shapes.flops.most_common(4):
         print(f"  ({m} x {k})·({k} x {n}): {fl / 1e9:.3f} GFLOP")

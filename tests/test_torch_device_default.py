@@ -130,7 +130,8 @@ def test_dtype_rule(device, dtype, expect):
 
 
 @pytest.mark.parametrize("fn", [
-    frame_step.frame_step, sfm.relative_rotation, sfm.solve_relative_rt,
+    frame_step.frame_step, frame_step.frame_step_graphed, frame_step.frame_key,
+    sfm.relative_rotation, sfm.solve_relative_rt,
     sfm.construct, convert.to_tensor, convert.window_states_from_numpy,
     convert.window_factors_from_numpy, convert.global_ba_from_numpy,
     convert.bal_problem_from_numpy, convert.direct_problem_from_numpy, posegraph.optimize, vocab.Vocabulary.__init__,

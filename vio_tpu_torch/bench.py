@@ -40,7 +40,6 @@ the module constants below.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import subprocess
@@ -62,7 +61,7 @@ from .estimator import Estimator
 from .features import klt
 from .ops import _build, linsolve
 from .parallel import global_ba
-from .solver import lm
+from .solver import graph, lm
 
 BASELINE_FPS = 25.0        # reference solver budget: 0.04 s/frame
 DETAILS = "BENCH_TORCH_DETAILS.json"
@@ -182,12 +181,25 @@ def window_problem(max_features: int, device=None, dtype=None):
     return states, f, pert, n_obs, live
 
 
-def window_solve(states, f, pert, n_obs):
+def window_solve(states, f, pert, n_obs, eager: bool = False):
     """One perturbed solve, so the LM loop runs all its iterations (a
-    converged start would stop after one).  Returns (Ps, chi2, iterations)."""
+    converged start would stop after one).  On the card it is the path the
+    estimator runs, the captured graphs replayed (``graph.solve_window``),
+    unless ``eager``; on the CPU ``lm.solve_window``.  Returns (Ps, chi2,
+    iterations)."""
     s = states._replace(Ps=states.Ps + pert)
-    new, _, _, stats = lm.solve_window(s, f, max_iter=WINDOW_MAX_ITER, n_obs=n_obs)
+    solve = (graph.solve_window if states.Ps.is_cuda and not eager
+             else lm.solve_window)
+    new, _, _, stats = solve(s, f, max_iter=WINDOW_MAX_ITER, n_obs=n_obs)
     return new.Ps, stats["chi2"], stats["iterations"]
+
+
+def graph_counts(before: dict, n: int = 1) -> dict:
+    """``graph.STATS`` since ``before`` (a copy taken earlier), per one of
+    ``n`` solves or frames: replays, host reads of the loop's condition,
+    attempts made and graphs captured."""
+    return {f"graph_{k}": (graph.STATS[k] - before.get(k, 0)) / n
+            for k in ("replays", "reads", "attempts", "captures")}
 
 
 def bench_window(max_features: int = 256, n: int = 5, want_flops: bool = False,
@@ -202,17 +214,21 @@ def bench_window(max_features: int = 256, n: int = 5, want_flops: bool = False,
 
     wall = wall_ms(step, n, device)
     dev = device_ms_pair(step, n, device)
-    # one more solve counts the kernel's launches and, on request, the
-    # matmul family's flops (FlopCounterMode does not see gj_solve)
-    counter = FlopCounterMode(display=False) if want_flops else contextlib.nullcontext()
-    before = linsolve.gj_solve.launches
-    with counter:
-        _, chi2, iters = step()
-    return dict(wall_ms=wall, device_ms=dev[0] if dev else None,
-                device_ms_key_averages=dev[1] if dev else None,
-                live=live, n_obs=n_obs, iterations=int(iters), chi2=float(chi2),
-                gj_solve_launches_per_solve=linsolve.gj_solve.launches - before,
-                flops=float(counter.get_total_flops()) if want_flops else None)
+    # one more solve counts the kernel's launches and the graphs' replays
+    # and reads; on request an eager solve counts the matmul family's flops
+    # (FlopCounterMode sees neither gj_solve nor a replay's kernels)
+    before, stats0 = linsolve.gj_solve.launches, dict(graph.STATS)
+    _, chi2, iters = step()
+    out = dict(wall_ms=wall, device_ms=dev[0] if dev else None,
+               device_ms_key_averages=dev[1] if dev else None,
+               live=live, n_obs=n_obs, iterations=int(iters), chi2=float(chi2),
+               gj_solve_launches_per_solve=linsolve.gj_solve.launches - before,
+               **graph_counts(stats0), flops=None)
+    if want_flops:
+        with FlopCounterMode(display=False) as counter:
+            window_solve(states, f, pert, n_obs, eager=True)
+        out["flops"] = float(counter.get_total_flops())
+    return out
 
 
 def klt_inputs(device=None, dtype=None):
@@ -299,13 +315,14 @@ def bench_e2e_sim(n_frames: int = 120, trace_frames: int = 4, device=None,
 
     data = sim.generate(noise=False)
     runner.run_sim(data, n_frames=min(E2E_WARM_FRAMES, n_frames), device=device, dtype=dtype)
-    before = linsolve.gj_solve.launches
+    before, stats0 = linsolve.gj_solve.launches, dict(graph.STATS)
     _sync(device)
     t0 = time.perf_counter()
     est, _ = runner.run_sim(data, n_frames=n_frames, device=device, dtype=dtype)
     _sync(device)
     wall = time.perf_counter() - t0
     launches = linsolve.gj_solve.launches - before
+    counts = graph_counts(stats0, max(len(est.telemetry), 1))
 
     est2 = Estimator(sim_config(), device=device, dtype=dtype)
     imu_i = 0
@@ -334,7 +351,8 @@ def bench_e2e_sim(n_frames: int = 120, trace_frames: int = 4, device=None,
                 post_init_frames_traced=windows, device_frames_traced=len(per_frame),
                 busy_share=dev / (1e3 / wall_fps) if dev is not None else None,
                 initialized=bool(est.initialized), failures=est.failure_count,
-                gj_solve_launches=launches)
+                gj_solve_launches=launches, window_solves=len(est.telemetry),
+                **{f"{k}_per_frame": v for k, v in counts.items()})
 
 
 def bench_fp32_ape(n_frames: int = 600, device=None, dtype=None) -> dict:
@@ -444,6 +462,7 @@ def main(device=None, details_path: str = DETAILS) -> int:
         "window_ba_live_factors": w["live"],
         "window_ba_gj_solve_launches_per_solve": w["gj_solve_launches_per_solve"],
         "window_ba_flops_per_solve_matmul_family": w["flops"],
+        **{f"window_ba_{k}_per_solve": w[k] for k in w if k.startswith("graph_")},
         "window_ba_achieved_gflops_matmul_family": (
             w["flops"] / w["device_ms"] / 1e6 if w["device_ms"] else None),
     })

@@ -10,7 +10,8 @@ Architecture: a thin host-side state machine (keyframe policy, window
 bookkeeping, init orchestration) in float64 numpy, driving device work on
 an explicit ``device`` in an explicit ``dtype``: batched preintegration,
 SfM, and one ``solver/frame_step.py`` call per frame (assembly + LM solve
-through the Gauss-Jordan kernel).  The marginalization prior chain and
+through the Gauss-Jordan kernel; on the card, the frame's captured CUDA
+graphs replayed).  The marginalization prior chain and
 the visual-IMU alignment stay on the host in float64 on every device.
 """
 from __future__ import annotations
@@ -29,6 +30,14 @@ from .init.ex_rotation import ExtrinsicRotationCalibrator
 from .solver import frame_step, marginalize, window as W
 from .utils import lie
 from .utils import lie_np
+
+# IMU samples per window interval are packed to the longest buffer rounded
+# up to a multiple of this, a static shape of the frame's captured graphs.
+# vio_tpu rounds to 32 with the configured capacity (max_imu_per_interval,
+# 64) as a floor; on the card this finer bucket took a post-init frame from
+# 37.1 to 24.4 ms of device time and run_sim from 17.1 to 19.5 frames/s,
+# for 10 graph keys instead of 2 over 150 frames (PERF.md §6).
+IMU_BUCKET = 8
 
 SOLVER_INITIAL = 0
 SOLVER_NON_LINEAR = 1
@@ -724,13 +733,14 @@ class Estimator:
         numpy.  Non-keyframe slides MERGE intervals, so a window interval
         can exceed the nominal capacity (e.g. ~0.4 s of 200 Hz IMU);
         truncating would silently shorten delta_p and bias the solved
-        scale.  The JAX package rounds the capacity up to a multiple of 32
-        to bound XLA recompiles; the port has none, so it packs to the
-        longest buffer: the preintegration loop runs that many steps, and
-        the masked tail steps it skips are exact no-ops."""
+        scale.  The capacity is a bucket, the longest buffer rounded up to
+        a multiple of ``IMU_BUCKET``: a static shape of the frame's captured
+        graphs (in the JAX package it bounds XLA's recompiles), so a run
+        captures a few keys.  The masked steps the preintegration runs
+        past a buffer's end are exact no-ops."""
         longest = max((len(b) for b in self.bufs[1:self.W1] if b is not None),
                       default=0)
-        M = max(longest, 1)
+        M = max(IMU_BUCKET, -(-longest // IMU_BUCKET) * IMU_BUCKET)
         packs = [_pad_buffer(self.bufs[k], M) for k in range(1, self.W1)]
         imu_valid = np.array([self.bufs[k] is not None and len(self.bufs[k]) > 0
                               for k in range(1, self.W1)])
@@ -783,18 +793,22 @@ class Estimator:
 
         # ONE device call for the whole frame (solver/frame_step.py):
         # preintegrate → LM solve → yaw-gauge re-fix → outlier errors →
-        # marg subproblem; then ONE fetch of the result to the host.
-        out = frame_step.frame_step(
-            states, *imu_pack, pts_i, pts_j, start, obs_mask, feat_valid,
-            self.H_prior, self.b_prior, self.err_prior, self.Jt_prior_inv,
-            self.g, self.noise_diag,
-            np.float64(self.cfg.focal_length / 1.5),
-            max_iter=self.cfg.max_num_iterations,
-            fix_ext=self.estimate_extrinsic == 0,
-            n_obs=self._obs_cap(obs_mask), marg_old=marg_old,
-            exact_noise=self.cfg.imu_noise_model == "exact",
-            device=self.device, dtype=self.dtype)
-        out = frame_step.fetch(out)
+        # marg subproblem; then ONE fetch of the result to the host.  On
+        # the card it is the frame's captured graphs, replayed (a capture
+        # or replay that fails raises); on the CPU the same functions run
+        # eagerly.
+        args = (states, *imu_pack, pts_i, pts_j, start, obs_mask, feat_valid,
+                self.H_prior, self.b_prior, self.err_prior, self.Jt_prior_inv,
+                self.g, self.noise_diag, np.float64(self.cfg.focal_length / 1.5))
+        kw = dict(max_iter=self.cfg.max_num_iterations,
+                  fix_ext=self.estimate_extrinsic == 0,
+                  n_obs=self._obs_cap(obs_mask), marg_old=marg_old,
+                  exact_noise=self.cfg.imu_noise_model == "exact",
+                  device=self.device, dtype=self.dtype)
+        if self.device.type == "cuda":
+            out = frame_step.frame_step_graphed(*args, **kw)
+        else:
+            out = frame_step.fetch(frame_step.frame_step(*args, **kw))
         t_solve = time.perf_counter() - t0
         self.b_prior = np.asarray(out.b_prior, np.float64)
         self.err_prior = np.asarray(out.err_prior, np.float64)

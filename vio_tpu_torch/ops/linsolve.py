@@ -104,11 +104,15 @@ def gj_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"gj_solve launch failed: CUDA error {rc} "
                            f"({lib.gj_solve_error_string(rc).decode()})")
-    gj_solve.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        gj_solve.captured += 1    # recorded, not run: each replay launches it
+    else:
+        gj_solve.launches += 1
     return x
 
 
-gj_solve.launches = 0
+gj_solve.launches = 0   # launches on the card, a graph's replays included
+gj_solve.captured = 0   # launches recorded into CUDA graphs (solver/graph.py)
 
 
 def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

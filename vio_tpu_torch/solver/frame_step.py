@@ -4,9 +4,13 @@ re-fix → outlier errors → marginalization Hessian, in ONE call.
 Port of ``vio_tpu/solver/frame_step.py`` (reference per-frame flow:
 vins-mono/src/estimator.cpp:492-503 solveOdometry → :549-600 double2vector
 gauge re-fix → :1075-1143 backendOptimization/marginalization).  The JAX
-version is one jitted program; here it is one plain function that takes
-the raw host arrays, uploads them once, and returns a ``FrameOut`` of
-device tensors that ``fetch`` brings to the host in one copy.
+version is one jitted program.  Here ``frame_step`` is the plain function
+(the CPU's path, and the card's reference): it takes the raw host arrays,
+uploads them, and returns a ``FrameOut`` of device tensors that ``fetch``
+brings to the host in one copy.  ``frame_step_graphed`` runs the same
+functions as captured CUDA graphs (``solver/graph.py``), cached by
+``frame_key``, what ``jax.jit`` holds static; it is the estimator's path
+on the card.
 
 The marginalization prior CHAIN runs on the host in float64
 (solver/marginalize.py); this call only produces the marg subproblem's
@@ -16,12 +20,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import factors, imu
 from ..convert import to_tensor
 from ..utils import lie
-from . import lm
+from . import graph, lm
 from . import window as W
 
 
@@ -31,7 +36,7 @@ class FrameOut(NamedTuple):
     err_prior: torch.Tensor
     chi2: torch.Tensor
     chi2_init: torch.Tensor
-    iterations: int
+    iterations: torch.Tensor    # () int64
     lam: torch.Tensor
     feat_errs: torch.Tensor     # (F,) mean reproj error per feature
     marg_Hpp: torch.Tensor      # (P, P) marg subproblem, landmarks eliminated
@@ -61,44 +66,67 @@ def _gauge_fix(origin_Ps, origin_Qs, s: W.WindowStates) -> W.WindowStates:
     return s._replace(Ps=Ps, Qs=Qs, Vs=Vs)
 
 
-def frame_step(states: W.WindowStates,
-               dts, accs, gyrs, mask, acc0, gyr0, imu_valid,
-               pts_i, pts_j, start, obs_mask, feat_valid,
-               H_prior, b_prior, err_prior, Jt_prior_inv,
-               g, noise_diag, proj_sqrt_info,
-               max_iter: int = 10, fix_ext: bool = True,
-               loss_delta: float = 1.0, n_obs: int | None = None,
-               marg_old: bool = True, exact_noise: bool = True,
-               *, device, dtype) -> FrameOut:
-    """One full estimator frame.  ``states`` and every array argument are
-    raw host data (numpy): one upload, one device call, one fetch."""
-    up = lambda x: to_tensor(x, device, dtype)   # noqa: E731
-    states = W.WindowStates(*map(up, states))
-    W1 = states.Ps.shape[0]
+class FrameKey(NamedTuple):
+    """What a frame's captured graphs are specialised on: ``vio_tpu``'s
+    static arguments (``vio_tpu/solver/frame_step.py:72``), the shapes
+    (window slots W1, feature slots F, IMU capacity M), dtype and device."""
+    max_iter: int
+    fix_ext: bool
+    loss_delta: float
+    n_obs: int | None
+    marg_old: bool
+    exact_noise: bool
+    W1: int
+    F: int
+    M: int
+    dtype: torch.dtype
+    device: torch.device
 
-    # ---- batched preintegration at the current start-frame biases ----
-    st = imu.preintegrate_batch(up(dts), up(accs), up(gyrs), up(mask),
-                                up(acc0), up(gyr0),
+
+def frame_key(states, dts, max_iter: int = 10, fix_ext: bool = True,
+              loss_delta: float = 1.0, n_obs: int | None = None,
+              marg_old: bool = True, exact_noise: bool = True,
+              *, device, dtype) -> FrameKey:
+    """The cache key of a frame whose window ``states`` and IMU buffers
+    ``dts`` (W, M) are given (host arrays)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    W1, F = len(states.Ps), len(states.inv_dep)
+    return FrameKey(int(max_iter), bool(fix_ext), float(loss_delta),
+                    None if n_obs is None else int(n_obs), bool(marg_old),
+                    bool(exact_noise), W1, F, int(np.shape(dts)[-1]), dtype, device)
+
+
+def _factors(states: W.WindowStates, dts, accs, gyrs, mask, acc0, gyr0, imu_valid,
+             pts_i, pts_j, start, obs_mask, feat_valid, H_prior, b_prior,
+             err_prior, Jt_prior_inv, g, noise_diag, proj_sqrt_info,
+             exact_noise: bool) -> W.WindowFactors:
+    """Batched preintegration at the current start-frame biases, and the
+    window's factors (device tensors in, device tensors out)."""
+    W1 = states.Ps.shape[0]
+    st = imu.preintegrate_batch(dts, accs, gyrs, mask, acc0, gyr0,
                                 states.Bas[:W1 - 1], states.Bgs[:W1 - 1],
-                                up(noise_diag), exact_noise)
-    imu_valid = up(imu_valid)
-    eye15 = torch.eye(15, dtype=dtype, device=device)
+                                noise_diag, exact_noise)
+    eye15 = torch.eye(15, dtype=states.Ps.dtype, device=states.Ps.device)
     cov = torch.where(imu_valid[:, None, None], st.covariance, eye15)
     terms = factors.ImuFactorTerms.from_state(st._replace(covariance=cov))
-
-    start = up(start)
-    feat_valid = up(feat_valid)
-    f = W.WindowFactors(
+    return W.WindowFactors(
         imu_terms=terms, imu_valid=imu_valid,
-        pts_i=up(pts_i), pts_j=up(pts_j), start=start, obs_mask=up(obs_mask),
-        feat_valid=feat_valid, H_prior=up(H_prior), b_prior=up(b_prior),
-        err_prior=up(err_prior), Jt_prior_inv=up(Jt_prior_inv), g=up(g),
-        proj_sqrt_info=up(proj_sqrt_info))
+        pts_i=pts_i, pts_j=pts_j, start=start, obs_mask=obs_mask,
+        feat_valid=feat_valid, H_prior=H_prior, b_prior=b_prior,
+        err_prior=err_prior, Jt_prior_inv=Jt_prior_inv, g=g,
+        proj_sqrt_info=proj_sqrt_info)
 
-    # ---- LM solve ----
-    solved, b_out, err_out, stats = lm.solve_window(
-        states, f, max_iter=max_iter, fix_ext=fix_ext,
-        loss_delta=loss_delta, n_obs=n_obs)
+
+def _finish(states: W.WindowStates, f: W.WindowFactors, solved: W.WindowStates,
+            b_out, err_out, loss_delta: float, n_obs: int | None,
+            marg_old: bool):
+    """After the solve: the yaw-gauge re-fix, the per-feature outlier
+    errors and the marginalization subproblem.  Returns (fixed states,
+    errs, marg_Hpp, marg_bp)."""
+    W1 = states.Ps.shape[0]
+    kw = dict(dtype=states.Ps.dtype, device=states.Ps.device)
 
     # ---- yaw-gauge re-fix ----
     fixed = _gauge_fix(states.Ps, states.Qs, solved)
@@ -109,9 +137,9 @@ def frame_step(states: W.WindowStates,
     # ---- marginalization subproblem at the gauge-fixed states ----
     P = W.num_pose_params(W1 - 1)
     if marg_old:
-        first = torch.arange(W1 - 1, device=device) == 0
-        f_m = f._replace(feat_valid=feat_valid & (start == 0),
-                         imu_valid=imu_valid & first,
+        first = torch.arange(W1 - 1, device=kw["device"]) == 0
+        f_m = f._replace(feat_valid=f.feat_valid & (f.start == 0),
+                         imu_valid=f.imu_valid & first,
                          b_prior=b_out, err_prior=err_out)
         n = W.assemble(fixed, f_m, fix_ext=False, loss_delta=loss_delta,
                        n_obs=n_obs)
@@ -123,13 +151,96 @@ def frame_step(states: W.WindowStates,
         marg_Hpp = n.Hpp - tempH @ n.Hpm.T
         marg_bp = n.bp - tempH @ n.bm
     else:
-        marg_Hpp = torch.zeros((P, P), dtype=dtype, device=device)
-        marg_bp = torch.zeros((P,), dtype=dtype, device=device)
+        marg_Hpp = torch.zeros((P, P), **kw)
+        marg_bp = torch.zeros((P,), **kw)
+    return fixed, errs, marg_Hpp, marg_bp
 
+
+def frame_step(states: W.WindowStates,
+               dts, accs, gyrs, mask, acc0, gyr0, imu_valid,
+               pts_i, pts_j, start, obs_mask, feat_valid,
+               H_prior, b_prior, err_prior, Jt_prior_inv,
+               g, noise_diag, proj_sqrt_info,
+               max_iter: int = 10, fix_ext: bool = True,
+               loss_delta: float = 1.0, n_obs: int | None = None,
+               marg_old: bool = True, exact_noise: bool = True,
+               *, device, dtype) -> FrameOut:
+    """One full estimator frame, eagerly.  ``states`` and every array
+    argument are raw host data (numpy): one upload per argument, one host
+    read per λ-attempt, a ``FrameOut`` of device tensors."""
+    up = lambda x: to_tensor(x, device, dtype)   # noqa: E731
+    states = W.WindowStates(*map(up, states))
+    f = _factors(states, *map(up, (dts, accs, gyrs, mask, acc0, gyr0, imu_valid,
+                                   pts_i, pts_j, start, obs_mask, feat_valid,
+                                   H_prior, b_prior, err_prior, Jt_prior_inv,
+                                   g, noise_diag, proj_sqrt_info)), exact_noise)
+
+    # ---- LM solve ----
+    solved, b_out, err_out, stats = lm.solve_window(
+        states, f, max_iter=max_iter, fix_ext=fix_ext,
+        loss_delta=loss_delta, n_obs=n_obs)
+    fixed, errs, marg_Hpp, marg_bp = _finish(states, f, solved, b_out, err_out,
+                                             loss_delta, n_obs, marg_old)
     return FrameOut(states=fixed, b_prior=b_out, err_prior=err_out,
                     chi2=stats["chi2"], chi2_init=stats["chi2_init"],
                     iterations=stats["iterations"], lam=stats["lam"],
                     feat_errs=errs, marg_Hpp=marg_Hpp, marg_bp=marg_bp)
+
+
+def _frame_fns(key: FrameKey):
+    """The head, chunk and tail of a frame's ``graph.LoopGraph``; the
+    inputs are frame_step's array arguments, the states' leaves first."""
+    n_states = len(W.WindowStates._fields)
+
+    def head(views, k):
+        states = W.WindowStates(*views[:n_states])
+        f = _factors(states, *views[n_states:], key.exact_noise)
+        s, p, chi2_init = lm.start(states, f, key.max_iter, key.fix_ext,
+                                   key.loss_delta, key.n_obs)
+        s = lm.attempts(s, p, k)
+        return s, (states, p, chi2_init), lm.live(s, key.max_iter)
+
+    def step(s, aux, k):
+        s = lm.attempts(s, aux[1], k)
+        return s, lm.live(s, key.max_iter)
+
+    def tail(s, aux):
+        states, p, chi2_init = aux
+        fixed, errs, marg_Hpp, marg_bp = _finish(
+            states, p.f, s.states, s.b_prior, s.err_prior, key.loss_delta,
+            key.n_obs, key.marg_old)
+        return [*fixed, s.b_prior, s.err_prior, s.chi, chi2_init, s.it, s.lam,
+                errs, marg_Hpp, marg_bp]
+
+    return head, step, tail
+
+
+def frame_step_graphed(states: W.WindowStates, *arrays,
+                       max_iter: int = 10, fix_ext: bool = True,
+                       loss_delta: float = 1.0, n_obs: int | None = None,
+                       marg_old: bool = True, exact_noise: bool = True,
+                       device, dtype) -> FrameOut:
+    """``frame_step`` on the card from its captured graphs (captured at a
+    key's first frame): one copy of every input from one pinned buffer,
+    the replays, one copy of every output back.  Takes frame_step's
+    arguments; returns the ``FrameOut`` that ``fetch`` would, as host
+    float64 arrays (``iterations`` an int).  Raises where there is no
+    CUDA device; there is no eager fallback."""
+    key = frame_key(states, arrays[0], max_iter, fix_ext, loss_delta, n_obs,
+                    marg_old, exact_noise, device=device, dtype=dtype)
+    if key.device.type != "cuda":
+        raise ValueError(f"frame_step_graphed runs on a CUDA device, not {key.device}")
+    host = [*states, *arrays]
+    lg = graph.loop_graph(key, [graph.spec_of(a, dtype) for a in host],
+                          *_frame_fns(key), key.device)
+    lg.inputs.upload(host)
+    out = lg.run()
+    n = len(W.WindowStates._fields)
+    b_prior, err_prior, chi2, chi2_init, it, lam, errs, mH, mb = out[n:]
+    return FrameOut(states=W.WindowStates(*out[:n]), b_prior=b_prior,
+                    err_prior=err_prior, chi2=chi2, chi2_init=chi2_init,
+                    iterations=int(it), lam=lam, feat_errs=errs, marg_Hpp=mH,
+                    marg_bp=mb)
 
 
 def fetch(out: FrameOut) -> FrameOut:
@@ -147,5 +258,5 @@ def fetch(out: FrameOut) -> FrameOut:
     s = W.WindowStates(*parts[:n])
     b_prior, err_prior, chi2, chi2_init, lam, errs, mH, mb = parts[n:]
     return FrameOut(states=s, b_prior=b_prior, err_prior=err_prior,
-                    chi2=chi2, chi2_init=chi2_init, iterations=out.iterations,
+                    chi2=chi2, chi2_init=chi2_init, iterations=int(out.iterations),
                     lam=lam, feat_errs=errs, marg_Hpp=mH, marg_bp=mb)

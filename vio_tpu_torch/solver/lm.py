@@ -3,12 +3,18 @@
 Port of ``vio_tpu/solver/lm.py`` (reference: vins-mono/src/backend/
 problem.cc:169-250 outer/inner loops, :394-451 SolveLinearSystem with
 landmark Schur, :497-522 ComputeLambdaInitLM, :541-573 IsGoodStepInLM).
-The JAX ``lax.while_loop`` over λ-attempts with a ``lax.cond`` accept/reject
-becomes a Python loop: each attempt reads its accept and stop decisions on
-the host, one device-to-host sync per attempt.  The scalars λ, ν and the
-chi² values stay device tensors in the solve dtype, as in the JAX loop.
+The JAX ``lax.while_loop`` body becomes ``_attempt``: one λ-attempt as a
+transition of the device-resident ``LMState``, its ``lax.cond``
+accept/reject turned into ``torch.where`` selects on every leaf and every
+update gated by the loop's condition, so an attempt made after the loop
+has ended changes no bit.  ``solve_window`` runs ``chunk`` attempts
+between host reads of that condition; ``solver/graph.py`` captures the
+same attempts as CUDA graphs and replays them, which is how the estimator
+runs them on the card.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -16,6 +22,38 @@ import torch.distributed as dist
 from . import window as W
 from ..ops import linsolve
 from ..parallel.global_ba import _psum_hi, all_reduce_system
+
+
+class LMState(NamedTuple):
+    """The λ-loop's carry (``vio_tpu/solver/lm.py:22``), all on the device:
+    the current states and prior rhs, their normal equations and reduced
+    system, the damping and the Nielsen counters as 0-d tensors."""
+    states: W.WindowStates
+    b_prior: torch.Tensor
+    err_prior: torch.Tensor
+    normal: W.Normal
+    S: torch.Tensor          # (P, P) landmark-reduced pose system
+    rhs: torch.Tensor        # (P,)
+    Hmm_inv: torch.Tensor    # (F,)
+    lam: torch.Tensor
+    ni: torch.Tensor
+    chi: torch.Tensor
+    last_chi: torch.Tensor
+    it: torch.Tensor         # int64
+    false_cnt: torch.Tensor  # int64
+    stop: torch.Tensor       # bool
+
+
+class Problem(NamedTuple):
+    """What every attempt of one solve reads and never changes."""
+    f: W.WindowFactors
+    imu_infos: torch.Tensor  # (W, 15, 15), inverted once per solve
+    max_iter: int
+    fix_ext: bool
+    loss_delta: float
+    n_obs: int | None
+    group: object = None     # torch.distributed group, or None
+    wire: list | None = None  # bytes of each all_reduce, appended
 
 
 def reduce_camera_system(normal: W.Normal, feat_valid):
@@ -44,90 +82,146 @@ def schur_solve(normal: W.Normal, lam, feat_valid):
     return _solve_reduced(normal, *reduce_camera_system(normal, feat_valid), lam)
 
 
+def _assemble(p: Problem, states, f):
+    return W.assemble(states, f, fix_ext=p.fix_ext, loss_delta=p.loss_delta,
+                      imu_infos=p.imu_infos, n_obs=p.n_obs)
+
+
+def _reduced(p: Problem, normal: W.Normal, extra):
+    """The reduced system, summed with chi² and ``extra`` over the group."""
+    S, rhs, Hmm_inv = reduce_camera_system(normal, p.f.feat_valid)
+    return (*all_reduce_system(S, rhs, normal.chi2, extra, p.group, p.wire), Hmm_inv)
+
+
+def start(states: W.WindowStates, f: W.WindowFactors, max_iter: int = 10,
+          fix_ext: bool = True, loss_delta: float = 1.0, n_obs: int | None = None,
+          group=None, wire=None):
+    """The first assembly and λ0: returns (LMState, Problem, chi2_init)."""
+    p = Problem(f, W._imu_infos(f), max_iter, fix_ext, loss_delta, n_obs, group,
+                [] if wire is None else wire)
+    normal = _assemble(p, states, f)
+    # λ0 = 1e-5 · min(max |diag|, 5e10) over the FULL diagonal (poses+landmarks)
+    S, rhs, chi, diag, Hmm_inv = _reduced(p, normal, torch.diagonal(normal.Hpp))
+    hmm_max = _psum_hi(torch.max(torch.abs(normal.Hmm)), group, dist.ReduceOp.MAX)
+    lam = 1e-5 * torch.clamp(torch.maximum(torch.max(torch.abs(diag)), hmm_max), max=5e10)
+    zero = torch.zeros((), dtype=torch.int64, device=chi.device)
+    s = LMState(states=states, b_prior=f.b_prior, err_prior=f.err_prior,
+                normal=normal, S=S, rhs=rhs, Hmm_inv=Hmm_inv, lam=lam,
+                ni=torch.full_like(chi, 2.0), chi=chi,
+                last_chi=torch.full_like(chi, 1e20), it=zero, false_cnt=zero,
+                stop=torch.zeros((), dtype=torch.bool, device=chi.device))
+    return s, p, chi
+
+
+def live(s: LMState, max_iter: int):
+    """The loop's condition (``vio_tpu/solver/lm.py:82``), a 0-d bool."""
+    return ~s.stop & (s.it < max_iter)
+
+
+def _select(mask, new, old):
+    """``torch.where`` over two pytrees of tensors of one structure."""
+    if isinstance(old, tuple):
+        out = [_select(mask, n, o) for n, o in zip(new, old)]
+        return type(old)(*out) if hasattr(old, "_fields") else tuple(out)
+    return torch.where(mask, new, old)
+
+
+def _attempt(s: LMState, p: Problem) -> LMState:
+    """One λ-attempt (the JAX loop's ``body``, ``vio_tpu/solver/lm.py:85-128``)
+    with no host read: accept and reject are both computed and selected
+    leaf by leaf, and both are masked by ``live``, so an attempt after the
+    loop has ended returns ``s`` bit for bit.  A rejected candidate's chi²,
+    ρ and α may be non-finite; the selects keep the old leaves then."""
+    f = p.f
+    go = live(s, p.max_iter)
+    dx_p, dx_m = _solve_reduced(s.normal, s.S, s.rhs, s.Hmm_inv, s.lam)
+    cand = W.apply_delta(s.states, dx_p, dx_m)
+
+    # first-order prior update (problem.cc:466-478)
+    cand_b_prior = s.b_prior - f.H_prior @ dx_p
+    cand_err = -(f.Jt_prior_inv @ cand_b_prior)
+
+    # One assembly per attempt: its chi2 IS the candidate cost, and on
+    # accept the normal equations are already built for the next step.
+    normal_cand = _assemble(p, cand, f._replace(b_prior=cand_b_prior, err_prior=cand_err))
+    # dxᵀ(λdx + b) with the PRE-Schur gradient: under a group bp is this
+    # rank's partial, so dx_pᵀbp rides the reduce with the landmark terms
+    dot = torch.dot(dx_p, s.normal.bp) + torch.dot(dx_m, s.lam * dx_m + s.normal.bm)
+    S_c, rhs_c, temp_chi, dot, Hmm_inv_c = _reduced(p, normal_cand, dot[None])
+    scale = 0.5 * (s.lam * torch.dot(dx_p, dx_p) + dot[0]) + 1e-6
+    rho = (s.chi - temp_chi) / scale
+    good = (rho > 0) & torch.isfinite(temp_chi)
+    acc = go & good
+    rej = go & ~good
+
+    # accept: Nielsen's λ shrink, the candidate becomes the state
+    alpha = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, max=2.0 / 3.0)
+    lam_acc = s.lam * torch.clamp(alpha, min=1.0 / 3.0)
+    stop_acc = (s.last_chi - temp_chi) < 1e-5
+    # reject: λ grows; ten rejects in a row count as an iteration
+    overflow = s.false_cnt + 1 >= 10
+    stop_rej = overflow & ((s.last_chi - s.chi) < 1e-5)
+    step = acc | (rej & overflow)       # what counts as an iteration
+
+    moved = _select(acc, (cand, cand_b_prior, cand_err, normal_cand, S_c, rhs_c,
+                          Hmm_inv_c, temp_chi),
+                    (s.states, s.b_prior, s.err_prior, s.normal, s.S, s.rhs,
+                     s.Hmm_inv, s.chi))
+    states, b_prior, err_prior, normal, S, rhs, Hmm_inv, chi = moved
+    lam = torch.where(acc, lam_acc, torch.where(rej, s.lam * s.ni, s.lam))
+    ni = torch.where(acc, torch.full_like(s.ni, 2.0),
+                     torch.where(rej, s.ni * 2.0, s.ni))
+    last_chi = torch.where(acc, temp_chi,
+                           torch.where(rej & overflow, s.chi, s.last_chi))
+    it = s.it + step.to(s.it.dtype)
+    false_cnt = torch.where(step, torch.zeros_like(s.false_cnt),
+                            s.false_cnt + rej.to(s.false_cnt.dtype))
+    stop = torch.where(acc, stop_acc, torch.where(rej, stop_rej, s.stop))
+    return LMState(states=states, b_prior=b_prior, err_prior=err_prior,
+                   normal=normal, S=S, rhs=rhs, Hmm_inv=Hmm_inv, lam=lam, ni=ni,
+                   chi=chi, last_chi=last_chi, it=it, false_cnt=false_cnt, stop=stop)
+
+
+def attempts(s: LMState, p: Problem, k: int) -> LMState:
+    """``k`` attempts in a row, with no host read."""
+    for _ in range(k):
+        s = _attempt(s, p)
+    return s
+
+
 def solve_window(states: W.WindowStates, f: W.WindowFactors,
                  max_iter: int = 10, fix_ext: bool = True,
                  loss_delta: float = 1.0, n_obs: int | None = None,
-                 group=None):
+                 group=None, chunk: int = 1):
     """Run LM on the window problem.  Returns (states, b_prior, err_prior,
     stats dict).  b_prior/err_prior carry the first-order prior update
     accumulated over accepted steps (problem.cc:466-478).  n_obs: optional
     live-observation cap — see window.assemble.
 
+    The attempts run eagerly, ``chunk`` of them between two host reads of
+    the loop's condition; attempts past the end change nothing, so every
+    ``chunk`` gives the same bits.  ``solver/graph.py`` replays the same
+    attempts from captured CUDA graphs (the estimator's path on the card).
+    stats: chi2, lam, chi2_init and ``iterations`` as 0-d device tensors,
+    ``attempts`` (made, wasted ones included) and ``reads`` as ints.
+
     ``group``: a ``torch.distributed`` process group over which the
-    problem's features are split (``parallel.sharded.shard_problem``).
-    Each assembly's reduced system, chi² and the gain ratio's landmark
-    terms are then summed over its ranks in ONE all_reduce; the damped
+    problem's features are split (``parallel.sharded.shard_problem``), a
+    separate entry point that always runs eagerly.  Each assembly's
+    reduced system, chi² and the gain ratio's landmark terms are then
+    summed over its ranks in ONE all_reduce inside the attempt; the damped
     pose solve is replicated, so every rank takes the same decisions.
     stats count the all_reduces and their bytes (0 without a group)."""
-    imu_infos = W._imu_infos(f)
-    wire = []
-
-    def assemble(s, f_):
-        return W.assemble(s, f_, fix_ext=fix_ext, loss_delta=loss_delta,
-                          imu_infos=imu_infos, n_obs=n_obs)
-
-    def reduced(n, extra):
-        S, rhs, Hmm_inv = reduce_camera_system(n, f.feat_valid)
-        return (*all_reduce_system(S, rhs, n.chi2, extra, group, wire), Hmm_inv)
-
-    normal = assemble(states, f)
-    # λ0 = 1e-5 · min(max |diag|, 5e10) over the FULL diagonal (poses+landmarks)
-    S, rhs, chi, diag, Hmm_inv = reduced(normal, torch.diagonal(normal.Hpp))
-    hmm_max = _psum_hi(torch.max(torch.abs(normal.Hmm)), group, dist.ReduceOp.MAX)
-    lam = 1e-5 * torch.clamp(torch.maximum(torch.max(torch.abs(diag)), hmm_max), max=5e10)
-    chi2_init = chi
-    ni = torch.full_like(chi, 2.0)
-    last_chi = torch.full_like(chi, 1e20)
-    b_prior, err_prior = f.b_prior, f.err_prior
-    it = 0
-    false_cnt = 0
-    stop = False
-
-    while not stop and it < max_iter:
-        dx_p, dx_m = _solve_reduced(normal, S, rhs, Hmm_inv, lam)
-        cand = W.apply_delta(states, dx_p, dx_m)
-
-        # first-order prior update (problem.cc:466-478)
-        cand_b_prior = b_prior - f.H_prior @ dx_p
-        cand_err = -(f.Jt_prior_inv @ cand_b_prior)
-
-        # One assembly per attempt: its chi2 IS the candidate cost, and on
-        # accept the normal equations are already built for the next step.
-        normal_cand = assemble(cand, f._replace(b_prior=cand_b_prior, err_prior=cand_err))
-        # dxᵀ(λdx + b) with the PRE-Schur gradient: under a group bp is this
-        # rank's partial, so dx_pᵀbp rides the reduce with the landmark terms
-        dot = torch.dot(dx_p, normal.bp) + torch.dot(dx_m, lam * dx_m + normal.bm)
-        S_c, rhs_c, temp_chi, dot, Hmm_inv_c = reduced(normal_cand, dot[None])
-        scale = 0.5 * (lam * torch.dot(dx_p, dx_p) + dot[0]) + 1e-6
-        rho = (chi - temp_chi) / scale
-        good_t = (rho > 0) & torch.isfinite(temp_chi)
-        # the attempt's only host sync: accept?, stop-if-accepted,
-        # stop-if-rejected-on-overflow
-        good, stop_acc, stop_rej = torch.stack([
-            good_t, (last_chi - temp_chi) < 1e-5, (last_chi - chi) < 1e-5]).tolist()
-
-        if good:
-            alpha = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, max=2.0 / 3.0)
-            lam = lam * torch.clamp(alpha, min=1.0 / 3.0)
-            states, b_prior, err_prior = cand, cand_b_prior, cand_err
-            normal, S, rhs, Hmm_inv = normal_cand, S_c, rhs_c, Hmm_inv_c
-            ni = torch.full_like(ni, 2.0)
-            chi = last_chi = temp_chi
-            it += 1
-            false_cnt = 0
-            stop = stop_acc
-        else:
-            overflow = false_cnt + 1 >= 10
-            stop = overflow and stop_rej
-            lam = lam * ni
-            ni = ni * 2.0
-            if overflow:
-                it += 1
-                false_cnt = 0
-                last_chi = chi
-            else:
-                false_cnt += 1
-
-    stats = dict(chi2=chi, iterations=it, lam=lam, chi2_init=chi2_init,
+    s, p, chi2_init = start(states, f, max_iter, fix_ext, loss_delta, n_obs, group)
+    n_att = reads = 0
+    while True:
+        s = attempts(s, p, chunk)
+        n_att += chunk
+        reads += 1
+        if not bool(live(s, max_iter)):
+            break
+    wire = p.wire
+    stats = dict(chi2=s.chi, iterations=s.it, lam=s.lam, chi2_init=chi2_init,
+                 attempts=n_att, reads=reads,
                  allreduces=len(wire), allreduce_bytes=wire[-1] if wire else 0)
-    return states, b_prior, err_prior, stats
+    return s.states, s.b_prior, s.err_prior, stats

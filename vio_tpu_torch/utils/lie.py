@@ -25,7 +25,11 @@ def _cross(a, b):
 
 
 def quat_identity(dtype=torch.float64, device=None):
-    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+    """(0, 0, 0, 1), made on ``device`` with no host-to-device copy (so it
+    can be captured into a CUDA graph)."""
+    q = torch.zeros(4, dtype=dtype, device=device)
+    q[3:] = 1.0
+    return q
 
 
 def quat_mul(q, p):
