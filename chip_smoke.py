@@ -5,8 +5,9 @@ CUDA device, nvcc and g++, and exits non-zero, printing no result, without
 them.  Phases, each of which raises on failure:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: compiles vio_tpu_torch/csrc/*.cu for sm_90a (nvcc) and the
-   measurement pairer, csrc/pairer.cpp (g++), side by side, at first use;
+2. build: compiles vio_tpu_torch/csrc/*.cu (the Gauss-Jordan and the
+   RANSAC kernels) for sm_90a (nvcc) and the measurement pairer,
+   csrc/pairer.cpp (g++), side by side, at first use;
 3. kernel against plain: the Gauss-Jordan kernel against its plain torch
    version on the card, on seeded random SPD systems in float32 (the main
    path's type) and float64, at P ∈ {17, 171, 300, 1024}, at both sides of
@@ -48,11 +49,36 @@ them.  Phases, each of which raises on failure:
    here: this configuration weights the IMU position residual at a few
    micrometres per frame interval, which float32 cannot evaluate at
    |P| ~ 16 m, and in float32 both this package and the JAX package miss
-   the bound (scripts/torch_image_path_precision.py measures both);
+   the bound (scripts/torch_image_path_precision.py measures both).  The
+   tracker runs its device work as CUDA graphs (a ``ProgramGraph`` per
+   program, solver/graph.py) and the RANSAC kernel: held to at least one
+   and at most MAX_TRACKER_PROGRAMS replays and reads a read_image, and
+   the RANSAC kernel launched; the replays and reads per read_image and
+   per solve are printed (so are phases 9, 10, 18 and 20's);
 8. CLAHE and distortion, tracker only: 30 frames rendered through a radtan
    camera of EuRoC magnitude, ``equalize=True``, through
    ``FeatureTracker.read_image``; enough live tracks at the end, and every
-   published bearing the undistorted projection of some landmark;
+   published bearing the undistorted projection of some landmark.  Each
+   frame is also run by a twin whose programs run eagerly on the card
+   (``_run_eager``), held to the graphed tracker to the bit, as phase 23;
+23. the tracker's graphs and the RANSAC kernel, right after phase 8:
+   30 frames of phase 7's stream through a graphed tracker and an eager
+   twin, held equal to the bit (positions, ids, track counts, templates,
+   lifts, published features, the frame kept on the device); then the
+   RANSAC kernel against its plain version on the card, in float32 and
+   float64, on the tracker's inputs of the frame with the most valid rows
+   (N = 150 slots, 256 hypotheses, the lifts in each type), against the
+   plain version run in float64 on the same inputs: every hypothesis's
+   null vector and projection within BACKWARD_C·eps in backward error
+   (``ops/ransac.py``), E up to sign within E_TOL_C·eps·κ where the type determines it, the
+   counts equal to the plain scoring of the kernel's E on COUNT_AGREE of
+   the hypotheses and within 1 on the rest, and in float64 to the
+   reference's likewise; in float32 no less accurate than the plain
+   float32 version (ACCURACY_RATIO, COUNT_MARGIN); the refit on the best
+   consensus set likewise.  Times the sweep and the refit, the plain version, the
+   library's SVDs (batched ``torch.linalg.svd`` of the gathered (256, 8,
+   9) systems and the 3 × 3 projection) and the bound, from the least
+   operations the functions need at this run's shapes;
 9. async image path: vio_tpu_torch.runner.run_images_async over phase 7's
    frames with phase 7's dtypes: the tracker in a producer thread, the
    native pairer, the estimator in this thread.  Held against phase 7's
@@ -174,11 +200,14 @@ them.  Phases, each of which raises on failure:
 
 Times are printed and recorded, never asserted.  The script's own time is
 printed after the last phase.  The line before the last
-is the kernels' JSON record, whose ``launches`` sums the launches of
-phases 5, 7, 9, 10, 11-16, 17, 18, 20 and 21 (the count is set to 0 just
-before each path and read just after; in phases 13-14 each rank counts
-its own and the ranks' counts are summed; in phases 20 and 21 each
-process reports its own, in its JSON line or its details); the last line
+is the kernels' JSON record: ``gj_solve``, whose ``launches`` sums the
+launches of phases 5, 7, 9, 10, 11-16, 17, 18, 20 and 21, and
+``essential_ransac`` (sweep and refit), whose ``launches`` sums those of
+phases 5, 7, 9, 10, 17, 18, 20 and 21 (the tracker's on the image paths,
+the init's bootstrap on every estimator path).  Each count is set to 0
+just before each path and read just after; in phases 13-14 each rank
+counts its own and the ranks' counts are summed; in phases 20 and 21 each
+process reports its own, in its JSON line or its details.  The last line
 is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -211,6 +240,36 @@ N_GRAPH_FRAMES = 8             # phase 22: post-init frames replayed eagerly
 GRAPH_RTOL, GRAPH_ATOL = 1e-5, 1e-6
 N_IMAGE_FRAMES = 155
 N_CLAHE_FRAMES = 30
+N_TWIN_TRACKER_FRAMES = 30     # phases 8 and 23: graphed against eager read_image
+MAX_TRACKER_PROGRAMS = 6       # replays and reads a read_image (the tracker has 5 a frame)
+# phase 23.  The reference is the plain version in float64 on the same
+# inputs.  Every hypothesis's null vector e and its projection E are held
+# by their backward errors, none of the sample's condition: ‖A ê‖ − σ_min
+# over ‖A‖_F, and E's distance from the projection of ê, each ≤
+# BACKWARD_C · eps (``ops/ransac.py``: ``null_backward``,
+# ``projection_backward``).  E up to sign is held to E_TOL_C · eps · κ, κ its
+# condition in float64: σ1/σ8 of its 8 × 9 system (a null vector's
+# first-order sensitivity) times 1 + 1/σ2 of its unit-norm E (the rank-2
+# projection's), on the hypotheses with eps · κ ≤ WELL_POSED; the others
+# have no E determined in the type.  Frame-to-frame motion is small, so
+# x1 ≈ x0 nearly satisfies every skew-symmetric E and the tracker's
+# minimal samples have κ ~ 1e4-1e5: float32 determines their E to
+# ~1e-3-1e-2, so their counts under the Sampson threshold follow the
+# round-off, the plain version's as much as the kernel's.  The kernel's
+# counts are held to the plain Sampson scoring of the kernel's own E's
+# (equal on COUNT_AGREE of the hypotheses, the others within 1: a row
+# within round-off of the threshold flips) and, in float64, to the
+# reference's counts likewise.  In float32 the kernel must be no less
+# accurate than the plain float32 version: its median |ΔE| to the
+# reference at most ACCURACY_RATIO times the plain version's, and its
+# counts equal to the reference's on at least the plain version's share
+# less COUNT_MARGIN.  The refit likewise, with σ1/(σ8 − σ9) of its
+# weighted system, its inlier flags and count within 1 of the reference's.
+COUNT_AGREE = 0.99
+ACCURACY_RATIO = 2.0
+COUNT_MARGIN = 0.02
+E_TOL_C = 64
+WELL_POSED = 1e-2
 N_LOOP_FRAMES = 600
 LOOP_DTYPE = torch.float64     # phase 10's estimator and closer; see above
 # EuRoC-magnitude radial-tangential distortion (the reference's MH-05
@@ -321,6 +380,40 @@ def cuda_ms(fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+@contextlib.contextmanager
+def ransac_counted(by_path: dict, label: str):
+    """Zero the RANSAC kernel's counts just before a path, record its
+    launches under ``label`` just after."""
+    from vio_tpu_torch.ops import ransac
+    ransac.sweep.launches = ransac.refit.launches = 0
+    yield
+    by_path[label] = ransac.launches()
+
+
+def graph_rates(before: dict, frames: int, solves: int) -> tuple[str, dict]:
+    """``graph.STATS`` since ``before``: the tracker's replays and host
+    reads per ``read_image`` (``frames``) and the estimator's per solve."""
+    from vio_tpu_torch.solver import graph
+    d = {k: graph.STATS[k] - before.get(k, 0)
+         for k in ("program_replays", "program_reads", "replays", "reads")}
+    parts = []
+    if frames:
+        parts.append(f"tracker {d['program_replays'] / frames:.2f} replays, "
+                     f"{d['program_reads'] / frames:.2f} reads a read_image")
+    if solves:
+        parts.append(f"estimator {d['replays'] / solves:.2f} replays, "
+                     f"{d['reads'] / solves:.2f} reads a solve")
+    return "; ".join(parts), d
+
+
+def hold_tracker_graphs(label: str, d: dict, frames: int) -> None:
+    """The tracker's device work ran as replays: at least one a frame and
+    at most MAX_TRACKER_PROGRAMS, as many host reads at most."""
+    if not (frames <= d["program_replays"] <= MAX_TRACKER_PROGRAMS * frames
+            and d["program_reads"] <= MAX_TRACKER_PROGRAMS * frames):
+        raise AssertionError(f"{label}: {d} over {frames} read_image calls")
+
+
 def frontend_on_card_against_cpu(device, tag: str) -> None:
     """Phase 6.  The card runs positions in float32, the CPU side in
     float64; a track whose gate value sits on its threshold may pass on
@@ -402,13 +495,15 @@ def image_main_path(device, tag: str) -> dict:
     for phase 9 to hold its own against."""
     from vio_tpu_torch import metrics, runner, sim
     from vio_tpu_torch.config import sim_images_config
-    from vio_tpu_torch.ops import linsolve
+    from vio_tpu_torch.ops import linsolve, ransac
+    from vio_tpu_torch.solver import graph
 
     cfg = sim_images_config()
     data = sim.generate(noise=False)
     trk = runner.make_tracker(cfg, device=device)
     read_image = trk.read_image
     tracker_ms, live = [], []
+    before = dict(graph.STATS)
 
     def timed_read_image(img, t):
         torch.cuda.synchronize()
@@ -450,7 +545,13 @@ def image_main_path(device, tag: str) -> dict:
           f"{statistics.median(tracker_ms[2:]):.3f} (synchronised) {tag}")
     print(f"image path median solve_ms {statistics.median(solve_ms):.3f} {tag}")
     print(f"image path mean live tracks {statistics.mean(live):.1f} of {cfg.max_cnt} {tag}")
-    print(f"image path gj_solve launches {launches} {tag}")
+    print(f"image path gj_solve launches {launches}, essential_ransac launches "
+          f"{ransac.launches()} {tag}")
+    rates, d = graph_rates(before, len(tracker_ms), len(est.telemetry))
+    print(f"image path graphs: {rates} {tag}")
+    hold_tracker_graphs("image path", d, len(tracker_ms))
+    if not ransac.launches() > 0:
+        raise AssertionError("image path: the RANSAC kernel was never launched")
     if not ape < 0.05:
         raise AssertionError(f"image path: APE {ape} m >= 0.05 m")
     if not launches > 0:
@@ -492,10 +593,12 @@ def async_image_path(device, tag: str, sync: dict) -> int:
     from vio_tpu_torch.config import sim_images_config
     from vio_tpu_torch.estimator import Estimator
     from vio_tpu_torch.ops import linsolve
+    from vio_tpu_torch.solver import graph
 
     cfg = sim_images_config()
     data = sim.generate(noise=False)
     trk = runner.make_tracker(cfg, device=device)
+    before = dict(graph.STATS)
     producer, consumer, threads = BusyLog(), BusyLog(), set()
     read_image = producer.wrap(trk.read_image)
 
@@ -544,6 +647,9 @@ def async_image_path(device, tag: str, sync: dict) -> int:
           f"busy {consumer.total():.2f} s in process_image, both at once "
           f"{producer.overlap(consumer):.2f} s = {100 * share:.1f} % of the producer's time {tag}")
     print(f"async image path gj_solve launches {launches}, pairer {stats} {tag}")
+    rates, d = graph_rates(before, len(producer.spans), len(est.telemetry))
+    print(f"async image path graphs: {rates} {tag}")
+    hold_tracker_graphs("async image path", d, len(producer.spans))
     if not dp <= 1e-6:
         raise AssertionError(f"async image path: max |dp| {dp} m > 1e-6 m")
     if not ape < 0.05:
@@ -598,6 +704,7 @@ def loop_closing_path(device, tag: str, dtype=None) -> int:
     from vio_tpu_torch.estimator import MARGIN_OLD
     from vio_tpu_torch.loop import closer as closer_mod
     from vio_tpu_torch.ops import linsolve
+    from vio_tpu_torch.solver import graph
     from vio_tpu_torch.utils import lie_np
 
     data = sim.generate(noise=True, pixel_noise=0.0)
@@ -636,6 +743,7 @@ def loop_closing_path(device, tag: str, dtype=None) -> int:
     n = N_LOOP_FRAMES - 1          # the last frame is solved after the rebase
     closer_mod.posegraph.optimize = synchronised(optimize, pg_ms)
     linsolve.gj_solve.launches = 0
+    before = dict(graph.STATS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
@@ -675,6 +783,7 @@ def loop_closing_path(device, tag: str, dtype=None) -> int:
           f"|drift_t| {drift:.4f} m {tag}")
     print(f"loop path wall {n / wall:.3f} frames/s ({wall:.2f} s, loop closing included) {tag}")
     print(f"loop path gj_solve launches {linsolve.gj_solve.launches} {tag}")
+    print(f"loop path graphs: {graph_rates(before, 0, len(est.telemetry))[0]} {tag}")
     if not ape_raw < 0.1583:
         raise AssertionError(f"loop path: raw APE {ape_raw} m >= 0.1583 m")
     if not closer.loops:
@@ -720,20 +829,71 @@ def loop_closing_path(device, tag: str, dtype=None) -> int:
     return launches
 
 
-def clahe_and_distortion_on_card(device, tag: str) -> None:
-    """Phase 8."""
+def tracker_graphs_against_eager(cfg, data, n_frames: int, label: str, tag: str,
+                                 on_frame=None, device=None) -> tuple[list, object]:
+    """Phases 8 and 23: ``FeatureTracker.read_image`` on the card with its
+    programs replayed from captured graphs, against a twin whose programs
+    run the same functions eagerly (``_run_eager``), frame by frame: the
+    positions, ids, track counts, templates and velocities' lifts, the
+    published features and the frame kept on the device, to the bit.
+    ``on_frame(k, out)`` sees the graphed tracker's output.  Returns the
+    host inputs of every graphed RANSAC call (pos, p1, ok, idx) and the
+    graphed tracker."""
     from vio_tpu_torch import runner, sim
+    from vio_tpu_torch.solver import graph
+
+    trk = runner.make_tracker(cfg, device=device)
+    twin = runner.make_tracker(cfg, device=device)
+    twin._run = twin._run_eager
+    recorded, run = [], trk._run
+
+    def recording(name, key, host, *args, **kwargs):
+        if name == "reject":
+            recorded.append([np.array(a) for a in host])
+        return run(name, key, host, *args, **kwargs)
+
+    trk._run = recording
+    before = dict(graph.STATS)
+    for k in range(n_frames):
+        img, t = sim.render_image(data, k), float(data.cam_t[k])
+        out, ref = trk.read_image(img, t), twin.read_image(img, t)
+        for name in ("pos", "ids", "track_cnt", "tmpl_T", "tmpl_Gx", "tmpl_Gy", "prev_un"):
+            if not np.array_equal(getattr(trk, name), getattr(twin, name)):
+                raise AssertionError(f"{label}: frame {k}: the graphed tracker's {name} "
+                                     f"is not the eager one's")
+        if not (sorted(out) == sorted(ref) and all(
+                np.array_equal(a, b) for f in out for a, b in zip(out[f], ref[f]))):
+            raise AssertionError(f"{label}: frame {k}: published features differ")
+        if not torch.equal(trk.prev_img, twin.prev_img):
+            raise AssertionError(f"{label}: frame {k}: the frames kept on the device differ")
+        if on_frame is not None:
+            on_frame(k, out)
+    rates, d = graph_rates(before, n_frames, 0)
+    print(f"{label}: {n_frames} frames, graphed and eager on the card equal to the bit "
+          f"(positions, ids, track counts, templates, lifts, published features, the "
+          f"frame on the device); {len(recorded)} RANSAC calls; graphed: {rates} {tag}")
+    hold_tracker_graphs(label, d, n_frames)
+    return recorded, trk
+
+
+def clahe_and_distortion_on_card(tag: str) -> None:
+    """Phase 8."""
+    from vio_tpu_torch import sim
     from vio_tpu_torch.config import sim_images_config
 
     data = sim.generate(noise=False, **DISTORT)
     cfg = sim_images_config(equalize=True, **DISTORT)
-    trk = runner.make_tracker(cfg, device=device)
-    worst = 0.0
-    for k in range(N_CLAHE_FRAMES):
-        out = trk.read_image(sim.render_image(data, k), float(data.cam_t[k]))
+    worst, last = [0.0], {}
+
+    def bearings(k, out):
         xy_gt = data.obs_xy[k][data.obs_valid[k]]
         for bearing, _, _ in out.values():
-            worst = max(worst, float(np.linalg.norm(xy_gt - bearing[:2], axis=1).min()))
+            worst[0] = max(worst[0], float(np.linalg.norm(xy_gt - bearing[:2], axis=1).min()))
+        last["out"] = out
+
+    _, trk = tracker_graphs_against_eager(cfg, data, N_CLAHE_FRAMES, "clahe + radtan tracker",
+                                          tag, on_frame=bearings)
+    out, worst = last["out"], worst[0]
     live = int(trk.valid.sum())
     print(f"clahe + radtan tracker: {N_CLAHE_FRAMES} frames, {live} live tracks at the end, "
           f"{len(out)} published, worst bearing {worst * 460.0:.3f} px from a landmark {tag}")
@@ -741,6 +901,206 @@ def clahe_and_distortion_on_card(device, tag: str) -> None:
         raise AssertionError(f"clahe + radtan tracker: {live} live tracks, {len(out)} published")
     if not worst < 5.0 / 460.0:
         raise AssertionError("clahe + radtan tracker: a published bearing is no landmark's")
+
+
+def _up_to_sign(a, b):
+    """max |a − b| and max |a + b| per leading index, the smaller of the two."""
+    a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    return np.minimum(np.abs(a - b).max(axis=1), np.abs(a + b).max(axis=1))
+
+
+def _library_sweep(A):
+    """The library's version of the sweep's SVDs: the null vectors of the
+    gathered (n_hyp, 8, 9) systems by ``torch.linalg.svd``, then the 3 × 3
+    projection."""
+    _, _, Vh = torch.linalg.svd(A, full_matrices=True)
+    E = Vh[:, -1, :].reshape(-1, 3, 3)
+    U, _, Vt = torch.linalg.svd(E)
+    return U[..., :2] @ Vt[..., :2, :]
+
+
+def _library_refit(A):
+    _, _, Vh = torch.linalg.svd(A, full_matrices=False)
+    U, _, Vt = torch.linalg.svd(Vh[-1].reshape(3, 3))
+    return U[:, :2] @ Vt[:2, :]
+
+
+# The least arithmetic the RANSAC functions need, by the cheapest direct
+# algorithms, whatever the kernel does (its Jacobi sweeps make several
+# times more).  A sample: its design rows (4 products a row), the null
+# vector of its 8 × 9 system by Householder QR of the 9 × 8 transpose
+# (2n²(m − n/3)) and the 8 reflectors applied to e₉ (4(m − k + 1) each),
+# the 3 × 3 projection's bidiagonalisation (4mn² − 4n³/3) and its rank-2
+# product (2 · 2 · 9).  The refit: its weighted rows (4 products and 9
+# weights a row) over the rows that weigh, their Householder QR, the 9 × 9
+# triangle's bidiagonalisation and the projection.  A valid row under an
+# E: its Sampson error (33).  The SVDs' iterations are not counted.
+def _qr_flops(m: int, n: int) -> float:
+    return 2.0 * n * n * (m - n / 3.0)
+
+
+PROJECT_FLOPS = 4 * 3 * 9 - 4 * 27 / 3 + 2 * 2 * 9
+SAMPLE_FLOPS = 8 * 4 + _qr_flops(9, 8) + sum(4 * (9 - k + 1) for k in range(1, 9)) \
+    + PROJECT_FLOPS
+SAMPSON_FLOPS = 33
+
+
+def sweep_flops(n_hyp: int, n_valid: int) -> float:
+    return n_hyp * (SAMPLE_FLOPS + SAMPSON_FLOPS * n_valid)
+
+
+def refit_flops(n_weighed: int, n_valid: int) -> float:
+    m = max(n_weighed, 9)
+    return (13 * m + _qr_flops(m, 9) + 4 * 9 * 81 - 4 * 729 / 3 + PROJECT_FLOPS
+            + SAMPSON_FLOPS * n_valid)
+
+
+def least_ms(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """The larger of the operations over the type's peak rate and the
+    bytes over the memory rate, in ms, and which it is."""
+    t_ops, t_bytes = flops / PEAK_FLOP_S[dtype], nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ransac_kernel_against_plain(recorded: list, cfg, tag: str, device="cuda") -> dict:
+    """Phase 23, second part: the RANSAC kernel against its plain version
+    on the card, in float32 and float64, on the tracker's inputs of the
+    frame with the most valid rows (phase 7's stream, 150 slots, 256
+    hypotheses): lifts of the positions in each type, its ok mask and its
+    drawn samples.  The reference is the plain version run in float64 on
+    the same inputs (for float32, the float32 lifts widened).  Every
+    hypothesis's null vector and projection are held by their backward
+    errors (BACKWARD_C·eps); E up to sign to E_TOL_C·eps·κ where the type
+    determines it; the counts as COUNT_AGREE says.  The refit on the
+    reference's best consensus set likewise.  Times the kernel, the plain
+    version in the same type, the library's SVDs and the bound."""
+    from vio_tpu_torch import runner
+    from vio_tpu_torch.ops import ransac
+
+    cam = runner.camera_from_config(cfg)
+    thresh = cfg.f_threshold / cfg.focal_length      # the tracker's
+    pos, p1, ok, idx = max(recorded, key=lambda r: int(r[2].sum()))
+    n_hyp, N, n_valid = len(idx), len(ok), int(ok.sum())
+    rec = {}
+    for dtype in (torch.float32, torch.float64):
+        eps = torch.finfo(dtype).eps
+        elem = torch.finfo(dtype).bits // 8
+        name = str(dtype)[6:]
+        x0 = cam.lift(torch.as_tensor(pos, dtype=dtype, device=device))
+        x1 = cam.lift(torch.as_tensor(p1, dtype=dtype, device=device))
+        valid = torch.as_tensor(ok, device=device)
+        idx_d = torch.as_tensor(idx, device=device)
+        e = torch.empty((n_hyp, 9), dtype=dtype, device=device)
+        E, n = ransac.sweep(x0, x1, valid, idx_d, thresh, null_out=e)
+        torch.cuda.synchronize()
+        E_pl, n_pl = ransac.sweep_reference(x0, x1, valid, idx_d, thresh)
+        w0, w1 = x0.double(), x1.double()
+        E64, n64 = ransac.sweep_reference(w0, w1, valid, idx_d, thresh)
+        h0, h1 = (torch.where(valid[:, None], x, 0.0).cpu().numpy() for x in (w0, w1))
+        rows = ransac.design_rows(h0, h1) * ok[:, None]
+        A = rows[idx]
+        kappa = ransac.e_condition(A)
+        e_h, E_h = e.double().cpu().numpy(), E.double().cpu().numpy()
+        back = ransac.null_backward(A, e_h)
+        proj = ransac.projection_backward(e_h, E_h)
+        E64_h = E64.cpu().numpy()
+        dE, dE_pl = _up_to_sign(E_h, E64_h), _up_to_sign(E_pl.double().cpu().numpy(), E64_h)
+        posed = eps * kappa <= WELL_POSED
+        limit = ransac.BACKWARD_C * eps
+        xm0, xm1 = ransac.masked(x0, x1, valid)
+        n_own = ((ransac.epipolar_err(E, xm0, xm1) < thresh * thresh) & valid).sum(-1)
+        n_h, n64_h = n.cpu().numpy(), n64.cpu().numpy()
+        d_own = np.abs(n_h - n_own.cpu().numpy())
+        d_ref = np.abs(n_h - n64_h)
+        agree, agree_ref = float((d_own == 0).mean()), float((d_ref == 0).mean())
+        agree_pl = float((n_pl.cpu().numpy() == n64_h).mean())
+        print(f"essential_ransac sweep {name}: {n_hyp} hypotheses over N={N} ({n_valid} "
+              f"valid), κ median {np.median(kappa):.3e}; backward error of the null "
+              f"vectors max {back.max():.3e}, of the projections max {proj.max():.3e} "
+              f"(limit {ransac.BACKWARD_C}·eps = {limit:.3e}, all {n_hyp}); against the "
+              f"plain version in float64: max |dE| up to sign {dE[posed].max(initial=0):.3e} on "
+              f"the {int(posed.sum())} with eps·κ ≤ {WELL_POSED} (worst / (C·eps·κ) "
+              f"{(dE[posed] / (E_TOL_C * eps * kappa[posed])).max(initial=0):.3e}), median "
+              f"over all {np.median(dE):.3e} (the plain version in {name}: "
+              f"{np.median(dE_pl):.3e}); counts equal to the plain scoring of the kernel's "
+              f"E on {100 * agree:.2f} % (max |dn| {int(d_own.max())}), to the float64 plain "
+              f"sweep's on {100 * agree_ref:.2f} % (max |dn| {int(d_ref.max())}; the plain "
+              f"version in {name}: {100 * agree_pl:.2f} %) {tag}")
+        if not (np.all(back <= limit) and np.all(proj <= limit)):
+            raise AssertionError(f"essential_ransac sweep {name}: a null vector or its "
+                                 f"projection is not backward stable")
+        if not (np.all(dE[posed] <= E_TOL_C * eps * kappa[posed])
+                and agree >= COUNT_AGREE and d_own.max() <= 1):
+            raise AssertionError(f"essential_ransac sweep {name}: the kernel disagrees with "
+                                 f"its plain version")
+        if dtype == torch.float64 and not (agree_ref >= COUNT_AGREE and d_ref.max() <= 1):
+            raise AssertionError("essential_ransac sweep float64: the counts are not the "
+                                 "plain sweep's")
+        if dtype == torch.float32 and not (
+                np.median(dE) <= ACCURACY_RATIO * np.median(dE_pl)
+                and agree_ref >= agree_pl - COUNT_MARGIN):
+            raise AssertionError("essential_ransac sweep float32: the kernel is less accurate "
+                                 "than its plain version")
+        # the refit on the reference's best consensus set
+        best = int(torch.argmax(n64))
+        w64 = ((ransac.epipolar_err(E64[best], *ransac.masked(w0, w1, valid))
+                < thresh ** 2) & valid).double()
+        w = w64.to(dtype)
+        er = torch.empty(9, dtype=dtype, device=device)
+        Er, inl, c = ransac.refit(x0, x1, valid, w, thresh, null_out=er)
+        torch.cuda.synchronize()
+        Er64, inl64, c64 = ransac.refit_reference(w0, w1, valid, w64, thresh)
+        wh = w64.cpu().numpy()
+        Aw = (rows * wh[:, None])[None]
+        kr = float(ransac.e_condition(Aw)[0])
+        r_back = float(ransac.null_backward(Aw, er.double().cpu().numpy()[None])[0])
+        r_proj = float(ransac.projection_backward(er.double().cpu().numpy()[None],
+                                            Er.double().cpu().numpy()[None])[0])
+        dEr = float(_up_to_sign(Er.double().cpu().numpy()[None], Er64.cpu().numpy()[None])[0])
+        flips = int((inl != inl64).sum())
+        print(f"essential_ransac refit {name}: {int(wh.sum())} rows weighted, backward error "
+              f"of the null vector {r_back:.3e}, of the projection {r_proj:.3e} (limit "
+              f"{limit:.3e}); against the plain version in float64: |dE| up to sign "
+              f"{dEr:.3e} (bound {E_TOL_C * eps * kr:.3e}), {flips} inlier flags differ, "
+              f"count {int(c)} against {int(c64)} {tag}")
+        if not (r_back <= limit and r_proj <= limit and dEr <= E_TOL_C * eps * kr
+                and flips <= 1 and abs(int(c) - int(c64)) <= 1):
+            raise AssertionError(f"essential_ransac refit {name}: the kernel disagrees")
+
+        At = torch.as_tensor(A, dtype=dtype, device=device)
+        Awt = torch.as_tensor(Aw[0], dtype=dtype, device=device)
+        ms = cuda_ms(lambda: ransac.sweep(x0, x1, valid, idx_d, thresh), reps=50, warmup=5)
+        plain_ms = cuda_ms(lambda: ransac.sweep_reference(x0, x1, valid, idx_d, thresh),
+                           reps=3, warmup=1)
+        library_ms = cuda_ms(lambda: _library_sweep(At), reps=10, warmup=2)
+        r_ms = cuda_ms(lambda: ransac.refit(x0, x1, valid, w, thresh), reps=50, warmup=5)
+        r_plain = cuda_ms(lambda: ransac.refit_reference(x0, x1, valid, w, thresh),
+                          reps=10, warmup=2)
+        r_library = cuda_ms(lambda: _library_refit(Awt), reps=10, warmup=2)
+        # bytes: x0, x1, valid and idx in, E and the counts out; the
+        # refit's x0, x1, valid and w in, E, the mask and the count out
+        flops = sweep_flops(n_hyp, n_valid)
+        least, bound_by = least_ms(flops, 4 * N * elem + N + 64 * n_hyp + 9 * n_hyp * elem
+                                   + 8 * n_hyp, dtype)
+        r_flops = refit_flops(int((wh > 0).sum()), n_valid)
+        r_least, r_by = least_ms(r_flops, 5 * N * elem + N + 9 * elem + N + 8, dtype)
+        print(f"essential_ransac sweep {name} n_hyp={n_hyp} N={N}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (torch.linalg.svd of the "
+              f"gathered systems + the 3x3 projection), bound {least:.3e} ms ({bound_by}; "
+              f"{flops / 1e6:.3f} MFLOP) {tag}")
+        print(f"essential_ransac refit {name} N={N}: kernel {r_ms:.4f} ms, plain "
+              f"{r_plain:.4f} ms, library {r_library:.4f} ms, bound {r_least:.3e} ms "
+              f"({r_by}; {r_flops / 1e6:.3f} MFLOP) {tag}")
+        rec[dtype] = dict(err=float(dE[posed].max(initial=0)), backward_err=float(back.max()),
+                          projection_err=float(proj.max()), backward_limit=limit,
+                          ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=least,
+                          bound_by=bound_by, count_agree_own=agree,
+                          count_agree_plain64=agree_ref, plain_count_agree_plain64=agree_pl,
+                          well_posed=int(posed.sum()),
+                          refit=dict(err=dEr, backward_err=r_back, projection_err=r_proj,
+                                     ms=r_ms, plain_ms=r_plain, library_ms=r_library,
+                                     bound_ms=r_least, bound_by=r_by))
+    return rec
 
 
 @contextlib.contextmanager
@@ -1296,9 +1656,9 @@ def online_td_path(tag: str) -> int:
     return launches
 
 
-def euroc_layout_path(tag: str, sync: dict) -> int:
-    """Phase 18.  ``sync`` is phase 7's result.  Returns the launches of
-    ``run_euroc``."""
+def euroc_layout_path(tag: str, sync: dict) -> tuple[int, dict]:
+    """Phase 18.  ``sync`` is phase 7's result.  Returns the Gauss-Jordan
+    kernel's launches of ``run_euroc`` and the RANSAC kernel's by path."""
     import dataclasses
     import tempfile
 
@@ -1307,6 +1667,7 @@ def euroc_layout_path(tag: str, sync: dict) -> int:
     from vio_tpu_torch.cli import nearest_stamp
     from vio_tpu_torch.config import sim_images_config
     from vio_tpu_torch.ops import linsolve
+    from vio_tpu_torch.solver import graph
 
     cfg = sim_images_config()
     data = sim.generate(noise=False)
@@ -1321,14 +1682,20 @@ def euroc_layout_path(tag: str, sync: dict) -> int:
                 and np.abs(back.cam_t - data.cam_t[:N_EUROC_FRAMES]).max() <= 1e-9):
             raise AssertionError("EuRoC layout: load_euroc does not return phase 7's IMU "
                                  "and stamps")
+        trk = runner.make_tracker(cfg)
+        reads = BusyLog()
+        trk.read_image = reads.wrap(trk.read_image)
         linsolve.gj_solve.launches = 0
+        by_path = {}
+        before = dict(graph.STATS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        est, traj, _ = runner.run_euroc(seq, cfg, tracker=runner.make_tracker(cfg),
-                                        dtype=torch.float64)
+        with ransac_counted(by_path, "run_euroc float64"):
+            est, traj, _ = runner.run_euroc(seq, cfg, tracker=trk, dtype=torch.float64)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = linsolve.gj_solve.launches
+        rates, d = graph_rates(before, len(reads.spans), len(est.telemetry))
     # the same rendered frames at the layout's nanosecond stamps, over the
     # first N_TWIN_FRAMES (the estimator is causal)
     rounded = dataclasses.replace(data, imu_t=back.imu_t, cam_t=np.concatenate(
@@ -1359,14 +1726,17 @@ def euroc_layout_path(tag: str, sync: dict) -> int:
           f"(stamps not rounded): first pose at published frame {first[0]} and {first[1]}, "
           f"{len(i)} poses at equal stamps, max |dp| {dp7:.3e} m {tag}")
     print(f"EuRoC layout wall {N_EUROC_FRAMES / wall:.3f} frames/s ({wall:.2f} s, loading "
-          f"included), gj_solve launches {launches} {tag}")
+          f"included), gj_solve launches {launches}, essential_ransac launches "
+          f"{by_path['run_euroc float64']} {tag}")
+    print(f"EuRoC layout graphs: {rates} {tag}")
+    hold_tracker_graphs("run_euroc", d, len(reads.spans))
     if not dp_twin <= EUROC_TWIN_DP:
         raise AssertionError(f"run_euroc: max |dp| {dp_twin} m from run_images at its stamps")
     if not ape < EUROC_APE:
         raise AssertionError(f"run_euroc: APE {ape} m >= {EUROC_APE} m")
     if not (est.device.type == "cuda" and est.dtype == torch.float64 and launches > 0):
         raise AssertionError(f"run_euroc: {est.device}, {est.dtype}, {launches} launches")
-    return launches
+    return launches, by_path
 
 
 def _stereo_pair(seed=0, n=40):
@@ -1593,11 +1963,12 @@ def device_functions_on_card(tag: str) -> None:
                                  "bounds missed")
 
 
-def cli_on_card(tag: str) -> dict:
+def cli_on_card(tag: str) -> tuple[dict, dict]:
     """Phase 20.  ``python -m vio_tpu_torch.cli`` as three processes at
     once: ``run --dataset sim``, ``run --dataset hybrid`` on streams
     written here, and ``sim --out``.  Returns the launches of each run,
-    read from its JSON line."""
+    read from its JSON line: the Gauss-Jordan kernel's and the RANSAC
+    kernel's."""
     import os
     import tempfile
 
@@ -1643,7 +2014,7 @@ def cli_on_card(tag: str) -> dict:
             for f in (f for pair in logs.values() for f in pair):
                 f.close()
         ids, frames = vio_io.read_sim_keyframes(os.path.join(tmp, "csv"))
-    launches = {}
+    launches, ransac = {}, {}
     for k in ("run sim", "run hybrid"):
         r = json.loads(outs[k][-1])
         start = walls[k] - r["wall_s"]
@@ -1656,11 +2027,16 @@ def cli_on_card(tag: str) -> dict:
                 and r["ape"]["rmse"] < CLI_APE):
             raise AssertionError(f"cli {k}: {r} (bounds: poses, launches, APE < {CLI_APE} m)")
         launches[f"cli {k} {want}"] = r["gj_solve_launches"]
+        ransac[f"cli {k} {want}"] = r["essential_ransac_launches"]
+        g, n = r["graphs"], max(r["frames"], 1)
+        print(f"cli {k} graphs per pose: tracker {g['program_replays'] / n:.2f} replays, "
+              f"{g['program_reads'] / n:.2f} reads; estimator {g['replays'] / n:.2f} "
+              f"replays, {g['reads'] / n:.2f} reads ({g['keys']} keys) {tag}")
     print(f"cli sim --out: {len(frames)} keyframe files, {len(ids)} landmarks, process "
           f"{walls['sim --out']:.1f} s {tag}")
     if len(frames) != 600 or not ids:
         raise AssertionError("cli sim --out: not the simulator's 600 keyframes")
-    return launches
+    return launches, ransac
 
 
 class BenchProcess:
@@ -1737,7 +2113,13 @@ class BenchProcess:
         if not all(by_stage.get(k, 0) > 0 for k in BENCH_KERNEL_STAGES):
             raise AssertionError(f"bench: gj_solve did not launch in {BENCH_KERNEL_STAGES}: "
                                  f"{by_stage}")
-        return {f"bench {k} float32": n for k, n in by_stage.items() if n}
+        ransac_by_stage = d["essential_ransac_launches_by_stage"]
+        e2e_key = "e2e_sim_120frames" if "e2e_sim_120frames" in d else "e2e_sim_60frames"
+        if not ransac_by_stage.get(e2e_key, 0) > 0:
+            raise AssertionError(f"bench: the RANSAC kernel did not launch in the init of "
+                                 f"{e2e_key}: {ransac_by_stage}")
+        return ({f"bench {k} float32": n for k, n in by_stage.items() if n},
+                {f"bench {k} float32": n for k, n in ransac_by_stage.items() if n})
 
 
 def main() -> int:
@@ -1748,7 +2130,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from vio_tpu_torch import metrics, runner, sim
-    from vio_tpu_torch.config import sim_config
+    from vio_tpu_torch.config import sim_config, sim_images_config
     from vio_tpu_torch.ops import _build, linsolve
     from vio_tpu_torch.solver import frame_step, graph
 
@@ -1855,10 +2237,12 @@ def main() -> int:
     frame_step.frame_step_graphed = recording
     graph.reset_stats()
     linsolve.gj_solve.launches = 0
+    ransac_by_path = {}            # the RANSAC kernel's launches by path
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        est, traj = runner.run_sim(data, cfg, n_frames=N_FRAMES)
+        with ransac_counted(ransac_by_path, "run_sim float32"):
+            est, traj = runner.run_sim(data, cfg, n_frames=N_FRAMES)
     finally:
         frame_step.frame_step_graphed = graphed
     torch.cuda.synchronize()
@@ -1884,12 +2268,15 @@ def main() -> int:
         raise AssertionError(f"the main path ran on {est.device} in {est.dtype}")
     if not (launches > 0 and launches >= iters):
         raise AssertionError(f"gj_solve launches {launches}, LM iterations {iters}")
+    if not ransac_by_path["run_sim float32"] > 0:
+        raise AssertionError("the init's RANSAC did not launch its kernel")
     print(f"main path: {N_FRAMES} frames, {len(traj['t'])} poses, "
           f"{len(est.telemetry)} window solves, {iters} LM iterations {tag}")
     print(f"main path APE rmse {ape:.6f} m {tag}")
     print(f"main path wall {N_FRAMES / wall:.3f} frames/s ({wall:.2f} s) {tag}")
     print(f"main path median solve_ms {statistics.median(solve_ms):.3f} {tag}")
-    print(f"main path gj_solve launches {launches} {tag}")
+    print(f"main path gj_solve launches {launches}, essential_ransac launches "
+          f"{ransac_by_path['run_sim float32']} (the init's bootstrap) {tag}")
     n_solves = max(len(est.telemetry), 1)
     if not (len(frames) == len(est.telemetry) and gst.get("replays", 0) > 0):
         raise AssertionError(f"the estimator did not replay graphs: {gst}")
@@ -1929,14 +2316,26 @@ def main() -> int:
 
     # ---- 6-8. the image frontend and the image main path ----
     frontend_on_card_against_cpu(est.device, tag)
-    sync = image_main_path(None, tag)
-    clahe_and_distortion_on_card(None, tag)
+    with ransac_counted(ransac_by_path, "run_images float64"):
+        sync = image_main_path(None, tag)
+    clahe_and_distortion_on_card(tag)
+
+    # ---- 23. the tracker's graphs against eager, the RANSAC kernel against plain ----
+    t_phase = time.perf_counter()
+    recorded, _ = tracker_graphs_against_eager(
+        sim_images_config(), sim.generate(noise=False), N_TWIN_TRACKER_FRAMES,
+        "tracker graphs against eager", tag)
+    ransac_rec = ransac_kernel_against_plain(recorded, sim_images_config(), tag)
+    print(f"chip_smoke: phase 23 (tracker graphs, RANSAC kernel) took "
+          f"{time.perf_counter() - t_phase:.1f} s {tag}")
 
     # ---- 9-10. the async image path and loop closing ----
-    async_launches = async_image_path(None, tag, sync)
+    with ransac_counted(ransac_by_path, "run_images_async float64"):
+        async_launches = async_image_path(None, tag, sync)
     orb_on_card_against_cpu(est.device, tag)
     bench = BenchProcess()         # phase 21, beside phase 10
-    loop_launches = loop_closing_path(None, tag, LOOP_DTYPE)
+    with ransac_counted(ransac_by_path, "run_sim + LoopCloser float64"):
+        loop_launches = loop_closing_path(None, tag, LOOP_DTYPE)
 
     # ---- 11-16. scale-out: global BA, distributed, window split, BAL, direct ----
     t_scale = time.perf_counter()
@@ -1952,14 +2351,25 @@ def main() -> int:
     print(f"chip_smoke: phases 11-16 took {time.perf_counter() - t_scale:.0f} s {tag}")
 
     # ---- 17-21. online td, the EuRoC layout, device functions, the CLI, the bench ----
+    def online_td():
+        with ransac_counted(ransac_by_path, "online td float32"):
+            by_path["online td float32"] = online_td_path(tag)
+
+    def both(counts):
+        gj, rs = counts
+        by_path.update(gj)
+        ransac_by_path.update(rs)
+
+    def euroc():
+        n, rs = euroc_layout_path(tag, sync)
+        both(({"run_euroc float64": n}, rs))
+
     for phase, label, run in (
-            (17, "online td", lambda: by_path.update(
-                {"online td float32": online_td_path(tag)})),
-            (18, "EuRoC layout", lambda: by_path.update(
-                {"run_euroc float64": euroc_layout_path(tag, sync)})),
+            (17, "online td", online_td),
+            (18, "EuRoC layout", euroc),
             (19, "device functions", lambda: device_functions_on_card(tag)),
-            (20, "the CLI", lambda: by_path.update(cli_on_card(tag))),
-            (21, "the bench", lambda: by_path.update(bench.check(tag)))):
+            (20, "the CLI", lambda: both(cli_on_card(tag))),
+            (21, "the bench", lambda: both(bench.check(tag)))):
         t_phase = time.perf_counter()
         run()
         print(f"chip_smoke: phase {phase} ({label}) took "
@@ -1972,6 +2382,11 @@ def main() -> int:
     # loop path in float64 (the same numbers under "float64"); the
     # scale-out paths' sizes under "sizes".
     main, main64 = rec[(torch.float32, MAIN_P)], rec[(torch.float64, MAIN_P)]
+    r32, r64 = ransac_rec[torch.float32], ransac_rec[torch.float64]
+    if not all(n > 0 for n in (ransac_by_path["run_images float64"],
+                               ransac_by_path["run_images_async float64"])):
+        raise AssertionError(f"the RANSAC kernel did not launch on an image path: "
+                             f"{ransac_by_path}")
     print(json.dumps({"kernels": [{
         "name": "gj_solve", "route": "cuda",
         "source": "vio_tpu_torch/csrc/gj_solve.cu",
@@ -1988,7 +2403,32 @@ def main() -> int:
                     "library_ms": main64["library_ms"]},
         "sizes": {f"{str(dt)[6:]} P={P}": {k: rec[(dt, P)][k] for k in (
             "err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-                  for dt in (torch.float32, torch.float64) for P in (384, 441, 600)}}]}))
+                  for dt in (torch.float32, torch.float64) for P in (384, 441, 600)}}, {
+        # the tracker's sweep runs in float32 (the keys the record
+        # requires), the image paths' bootstrap in float64; the refit's
+        # numbers under "refit"
+        "name": "essential_ransac", "route": "cuda",
+        "source": "vio_tpu_torch/csrc/essential_ransac.cu",
+        "replaces": "vio_tpu/init/sfm.py:172",
+        "launches": sum(ransac_by_path.values()),
+        "max_abs_err": r32["err"],
+        "ms": r32["ms"], "plain_ms": r32["plain_ms"],
+        "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
+        "library_ms": r32["library_ms"],
+        "launches_by_path": ransac_by_path,
+        "float64": {k: r64[k] for k in ("err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")},
+        "refit": {"float32": r32["refit"], "float64": r64["refit"]},
+        "backward_err": {"float32": r32["backward_err"], "float64": r64["backward_err"]},
+        "projection_err": {"float32": r32["projection_err"],
+                           "float64": r64["projection_err"]},
+        "backward_limit": {"float32": r32["backward_limit"],
+                           "float64": r64["backward_limit"]},
+        "count_agree_own_E": {"float32": r32["count_agree_own"],
+                              "float64": r64["count_agree_own"]},
+        "count_agree_plain_float64": {"float32": r32["count_agree_plain64"],
+                                      "float64": r64["count_agree_plain64"]},
+        "plain_float32_count_agree_plain_float64": r32["plain_count_agree_plain64"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0

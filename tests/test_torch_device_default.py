@@ -20,6 +20,7 @@ from vio_tpu_torch.features.tracker import FeatureTracker
 from vio_tpu_torch.init import icp, sfm
 from vio_tpu_torch.loop import posegraph, vocab
 from vio_tpu_torch.loop.closer import LoopCloser
+from vio_tpu_torch.ops import ransac
 from vio_tpu_torch.parallel import global_ba, sharded
 from vio_tpu_torch.solver import bal, frame_step, marginalize
 
@@ -153,6 +154,8 @@ def test_inner_functions_keep_no_device_default(fn):
     klt.refine_on_templates, klt._patch_grid, klt._gauss_weights,
     detect.shi_tomasi_response, detect.detect, detect.occupancy_from_points,
     clahe.clahe, PinholeCamera.lift, PinholeCamera.project,
+    sfm.essential_ransac_from_samples, sfm.essential_ransac, sfm.ransac_samples,
+    ransac.sweep, ransac.refit,
     stereo.disparity_from_flow, stereo.disparity_to_pointcloud,
     stereo.points_to_pointcloud, stereo.pearson, icp.umeyama, icp.icp_gn,
     marginalize.marginalize_old, marginalize.marginalize_new,

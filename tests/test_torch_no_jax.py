@@ -27,7 +27,8 @@ MODULES = [
     "vio_tpu_torch.sim",
     "vio_tpu_torch.init.alignment", "vio_tpu_torch.init.ex_rotation",
     "vio_tpu_torch.init.sfm", "vio_tpu_torch.ops._build",
-    "vio_tpu_torch.ops.linsolve", "vio_tpu_torch.solver.frame_step",
+    "vio_tpu_torch.ops.linsolve", "vio_tpu_torch.ops.ransac",
+    "vio_tpu_torch.solver.frame_step",
     "vio_tpu_torch.solver.generic", "vio_tpu_torch.solver.graph",
     "vio_tpu_torch.solver.lm",
     "vio_tpu_torch.solver.marginalize", "vio_tpu_torch.solver.pcg",

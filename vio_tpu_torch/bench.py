@@ -59,7 +59,7 @@ from .config import sim_config
 from .device import resolve
 from .estimator import Estimator
 from .features import klt
-from .ops import _build, linsolve
+from .ops import _build, linsolve, ransac
 from .parallel import global_ba
 from .solver import graph, lm
 
@@ -252,12 +252,26 @@ def klt_inputs(device=None, dtype=None):
 
 def bench_klt(n: int = 5, device=None, dtype=None) -> dict:
     """Batched forward-backward KLT of 150 features over 3 levels on 640²,
-    the reference's per-frame cv::calcOpticalFlowPyrLK shape."""
+    the reference's per-frame cv::calcOpticalFlowPyrLK shape.  On the card
+    ``klt.track_fb`` is replayed from its captured graph, the counterpart
+    of the jitted ``track_fb`` that bench.py times (a call also copies the
+    two frames and the positions into the graph's inputs, ~3.3 MB device
+    to device, and the tracked positions out); on the CPU it runs
+    eagerly."""
     device, dtype = resolve(device, dtype)
-    a0, a1, pp, vv = klt_inputs(device, dtype)
+    inputs = klt_inputs(device, dtype)
+    if device.type == "cuda":
+        specs = [(tuple(t.shape), t.dtype) for t in inputs]
+        g = graph.program_graph(("klt.track_fb", tuple(specs), device), specs,
+                                lambda *xs: ([], [klt.track_fb(*xs)[0]]), device)
+        p1 = torch.empty_like(inputs[2])
 
-    def step():
-        return klt.track_fb(a0, a1, pp, vv)[0]
+        def step():
+            g.run((), inputs, keep=[p1])
+            return p1
+    else:
+        def step():
+            return klt.track_fb(*inputs)[0]
 
     return dict(wall_ms=wall_ms(step, n, device), device_ms=device_ms(step, n, device))
 
@@ -430,6 +444,9 @@ def main(device=None, details_path: str = DETAILS) -> int:
         details["build_compiled"] = info["built"]
     t_start = time.monotonic()
     by_stage = details["gj_solve_launches_by_stage"] = {}
+    # the RANSAC kernel's launches (sweep and refit): the init's
+    # bootstrap in the end-to-end stages
+    ransac_by_stage = details["essential_ransac_launches_by_stage"] = {}
 
     def remaining():
         return budget - (time.monotonic() - t_start) if budget is not None else float("inf")
@@ -476,7 +493,7 @@ def main(device=None, details_path: str = DETAILS) -> int:
             details[key] = f"skipped (budget: {left:.0f}s left, need ~{min_s}s)"
         else:
             t0 = time.monotonic()
-            n0 = linsolve.gj_solve.launches
+            n0, r0 = linsolve.gj_solve.launches, ransac.launches()
             try:
                 details[key] = fn()
             except Exception as e:      # recorded, and the run exits 1
@@ -485,6 +502,7 @@ def main(device=None, details_path: str = DETAILS) -> int:
                 failed.append(key)
             details.setdefault("stage_wall_s", {})[key] = time.monotonic() - t0
             by_stage[key] = linsolve.gj_solve.launches - n0
+            ransac_by_stage[key] = ransac.launches() - r0
         flush_details(details, details_path)
 
     stage("host_roundtrip_ms", 10, lambda: host_roundtrip_ms(device=device))
@@ -526,6 +544,7 @@ def main(device=None, details_path: str = DETAILS) -> int:
               lambda: bench_fp32_ape(FULL_FRAMES, device=device, dtype=dtype))
 
     details["gj_solve_launches"] = sum(by_stage.values())
+    details["essential_ransac_launches"] = sum(ransac_by_stage.values())
     details["total_wall_s"] = time.monotonic() - t_start
     flush_details(details, details_path)
     print(json.dumps(details, indent=2), file=sys.stderr)

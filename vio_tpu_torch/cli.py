@@ -14,7 +14,8 @@ The device work runs on the CUDA device unless ``--device cpu`` is given
 the simulation dataset and float64 for the image datasets, whose
 configurations need it (the tracker keeps its device's default);
 ``--dtype`` overrides it.  Each run prints one JSON line, which includes
-the Gauss-Jordan kernel's launches.
+the Gauss-Jordan and RANSAC kernels' launches and the CUDA graphs' keys,
+replays and host reads (``solver/graph.py``; 0 on the CPU).
 """
 from __future__ import annotations
 
@@ -63,12 +64,17 @@ class _MaybeProfile:
 
 
 def _result(dataset, est, traj, wall, **extra):
-    from .ops import linsolve
+    from .ops import linsolve, ransac
+    from .solver import graph
     return dict(dataset=dataset, frames=len(traj["t"]),
                 failures=est.failure_count, wall_s=round(wall, 1),
                 fps=round(est.frame_solved / max(wall, 1e-9), 2),
                 device=str(est.device), dtype=str(est.dtype).removeprefix("torch."),
-                gj_solve_launches=linsolve.gj_solve.launches, **extra)
+                gj_solve_launches=linsolve.gj_solve.launches,
+                essential_ransac_launches=ransac.launches(),
+                graphs={k: graph.STATS[k] for k in ("keys", "replays", "reads",
+                                                    "program_replays", "program_reads")},
+                **extra)
 
 
 def cmd_run(args):

@@ -8,12 +8,21 @@ per-feature normalized-plane velocity).
 Split of labor: the per-frame device work (pyramids, batched KLT,
 Shi-Tomasi + NMS detection, the RANSAC hypothesis sweep) runs with STATIC
 capacity N (id bookkeeping masks); the tiny id/track-count bookkeeping
-lives on the host in numpy, so every result the bookkeeping reads is a
-device-to-host copy.  When ``equalize`` is on, frames pass through
-device-side CLAHE first (features/clahe.py), matching the reference's
-cv::CLAHE(3.0, 8×8) at feature_tracker.cpp:89-91.
+lives on the host in numpy.  The device work is a handful of pure
+programs of static-shaped inputs, one per jitted call of ``vio_tpu``'s
+tracker (merged where ``vio_tpu`` does no host work between them; see
+``_programs``).  On the card each is a CUDA graph captured once per
+``TrackerKey`` (``solver/graph.py``'s ``ProgramGraph``): one upload, one
+replay and one read a call.  On the CPU the same functions run eagerly.
+The frame's image stays on the device, in the tracker's own buffer
+(``prev_img``), from one frame to the next.  When ``equalize`` is on,
+frames pass through device-side CLAHE first (features/clahe.py),
+matching the reference's cv::CLAHE(3.0, 8×8) at feature_tracker.cpp:89-91.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -22,10 +31,96 @@ from . import clahe as clahe_mod
 from . import detect, klt
 from ..device import resolve
 from ..init import sfm
+from ..solver import graph
+
+KLT_ITERS = 10     # klt.track_fb's iterations a level, as vio_tpu's tracker runs it
+N_HYP = 256        # RANSAC hypotheses a frame (sfm.essential_ransac's default)
+
+
+class TrackerKey(NamedTuple):
+    """What the tracker's captured programs are specialised on: what
+    ``jax.jit`` holds static in ``vio_tpu``'s tracker (the shapes, the
+    tracker's options), the camera (a capture bakes its parameters in),
+    the dtype of the positions and the device."""
+    shape: tuple
+    max_cnt: int
+    levels: int
+    n_iters: int
+    fb_thresh: float
+    equalize: bool
+    clahe_clip: float
+    min_dist: int
+    n_hyp: int
+    f_thresh: float
+    camera: tuple
+    dtype: torch.dtype
+    device: torch.device
+
+
+def _programs(key: TrackerKey, camera) -> dict:
+    """name → (input specs, fn) of the tracker's device programs; each fn
+    takes its inputs (host arrays' tensors first, then device tensors) and
+    returns (outputs for the host, tensors kept on the device):
+
+    - image: [clahe] of the frame → kept: the frame (no tracking this frame);
+    - track: [clahe] + ``klt.track_fb`` + ``klt.refine_on_templates`` →
+      p_ref, ok; kept: the frame;
+    - reject: ``lift(pos)``, ``lift(p1)`` + ``sfm.essential_ransac_from_samples``
+      → inl, n_inl;
+    - detect: ``detect.occupancy_from_points`` + ``detect.detect`` → xy, dvalid;
+    - templates: ``klt.sample_templates`` → T, Gx, Gy;
+    - lift: ``lift(pos)``."""
+    H, W = key.shape
+    N = key.max_cnt
+    P2 = (2 * klt.REFINE_HALF + 1) ** 2
+    f32, b, pos = torch.float32, torch.bool, key.dtype
+    img_s, pos_s, flag_s, tmpl_s = ((H, W), f32), ((N, 2), pos), ((N,), b), ((N, P2), f32)
+
+    def frame(img):
+        if key.equalize:
+            return clahe_mod.clahe(img, clip_limit=key.clahe_clip)
+        return img.clone()
+
+    def image(img):
+        return [], [frame(img)]
+
+    def track(img, p0, valid, T, Gx, Gy, prev):
+        cur = frame(img)
+        p1, ok, _ = klt.track_fb(prev, cur, p0, valid, levels=key.levels,
+                                 n_iters=key.n_iters, fb_thresh=key.fb_thresh)
+        # drift-free refinement against the birth templates: the
+        # frame-to-frame estimate only seeds the search
+        p_ref, ok_ref, _ = klt.refine_on_templates(cur, T, Gx, Gy, p1, ok)
+        return [p_ref, ok & ok_ref], [cur]
+
+    def reject(p0, p1, ok, idx):
+        _, inl, n_inl = sfm.essential_ransac_from_samples(
+            camera.lift(p0), camera.lift(p1), ok, idx, thresh=key.f_thresh)
+        return [inl, n_inl], []
+
+    def replenish(p0, valid, img):
+        occ = detect.occupancy_from_points((H, W), p0, valid, key.min_dist)
+        xy, _, dvalid = detect.detect(img, occ, max_corners=key.max_cnt,
+                                      min_dist=key.min_dist)
+        return [xy, dvalid], []
+
+    def templates(p0, img):
+        return list(klt.sample_templates(img, p0)), []
+
+    def lift(p0):
+        return [camera.lift(p0)], []
+
+    return dict(
+        image=([img_s], image),
+        track=([img_s, pos_s, flag_s, tmpl_s, tmpl_s, tmpl_s, img_s], track),
+        reject=([pos_s, pos_s, flag_s, ((key.n_hyp, 8), torch.int64)], reject),
+        detect=([pos_s, flag_s, img_s], replenish),
+        templates=([pos_s, img_s], templates),
+        lift=([pos_s], lift))
 
 
 class FeatureTracker:
-    """Stateful host wrapper over the device tracking functions.
+    """Stateful host wrapper over the device tracking programs.
 
     ``device=None`` is the CUDA device and raises without one
     (``device.resolve``).  Images are float32 on every device; positions
@@ -38,6 +133,8 @@ class FeatureTracker:
                  levels: int = 3, reanchor_every: int = 25,
                  device=None, dtype=None):
         self.device, self.dtype = resolve(device, dtype)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.cam = camera
         self.max_cnt = max_cnt
         self.min_dist = min_dist
@@ -46,6 +143,8 @@ class FeatureTracker:
         self.equalize = equalize
         self.clahe_clip = clahe_clip
         self.levels = levels
+        self.n_iters = KLT_ITERS
+        self.n_hyp = N_HYP
         # drift-free anchoring: per-feature birth templates (see
         # klt.sample_templates); re-anchored every `reanchor_every` frames
         # so real-scene appearance change stays within the basin
@@ -60,29 +159,44 @@ class FeatureTracker:
         # are reproducible regardless of timestamp values
         self.seed = seed
         self.frame_idx = 0
-        self.prev_img = None
+        self.prev_img = None      # the last frame's (equalized) image, on the device
         self.prev_t = None
         self.pos = np.zeros((max_cnt, 2))         # pixel positions
         self.ids = -np.ones(max_cnt, dtype=np.int64)
         self.track_cnt = np.zeros(max_cnt, dtype=np.int64)
         self.prev_un = np.zeros((max_cnt, 2))     # normalized coords
         self.next_id = 0
+        self._progs = {}
 
     @property
     def valid(self):
         return self.ids >= 0
 
-    def _positions(self, a):
-        """Host positions → device tensor in the tracker's dtype."""
-        return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+    def key(self, shape) -> TrackerKey:
+        """The key of this tracker's programs for images of ``shape``."""
+        cam = (type(self.cam).__name__, dataclasses.astuple(self.cam))
+        return TrackerKey(tuple(int(n) for n in shape), int(self.max_cnt), int(self.levels),
+                          int(self.n_iters), float(self.fb_thresh), bool(self.equalize),
+                          float(self.clahe_clip), int(self.min_dist), int(self.n_hyp),
+                          float(self.f_thresh), cam, self.dtype, self.device)
 
-    def _flags(self, a):
-        return torch.as_tensor(a, dtype=torch.bool, device=self.device)
+    def _program(self, name, key):
+        if key not in self._progs:
+            self._progs[key] = _programs(key, self.cam)
+        return self._progs[key][name]
 
-    def _lift(self, a):
-        """Undistort host pixel positions on the device; float64 on the
-        host."""
-        return self.cam.lift(self._positions(a)).cpu().numpy().astype(np.float64)
+    def _run(self, name, key, host, device=(), keep=()):
+        """Program ``name``: replayed from its captured graph on the card,
+        run eagerly on the CPU.  Returns its outputs as host arrays."""
+        if self.device.type != "cuda":
+            return self._run_eager(name, key, host, device, keep)
+        specs, fn = self._program(name, key)
+        return graph.program_graph((name, key), specs, fn, self.device).run(
+            host, device, keep)
+
+    def _run_eager(self, name, key, host, device=(), keep=()):
+        specs, fn = self._program(name, key)
+        return graph.run_eagerly(specs, fn, host, device, keep, on=self.device)
 
     def _ransac_generator(self) -> torch.Generator:
         return torch.Generator().manual_seed(
@@ -114,55 +228,46 @@ class FeatureTracker:
         """Process one frame.  Returns {feature_id: (bearing(3,), uv(2,),
         vel(2,))} for features with track_cnt > 1 (the reference only
         publishes re-observed features, System.cpp:228-266)."""
-        img_d = torch.as_tensor(img, dtype=torch.float32, device=self.device)
-        if self.equalize:
-            img_d = clahe_mod.clahe(img_d, clip_limit=self.clahe_clip)
+        img = np.asarray(img, dtype=np.float32)
+        key = self.key(img.shape)
+        have_prev = self.prev_img is not None
+        if have_prev and tuple(self.prev_img.shape) != img.shape:
+            raise ValueError(f"FeatureTracker.read_image: a {img.shape} image after "
+                             f"{tuple(self.prev_img.shape)} ones; a stream keeps its size")
+        if not have_prev:
+            self.prev_img = torch.empty(img.shape, dtype=torch.float32, device=self.device)
 
-        if self.prev_img is not None and bool(np.any(self.valid)):
-            p1, ok, _ = klt.track_fb(self.prev_img, img_d,
-                                     self._positions(self.pos),
-                                     self._flags(self.valid),
-                                     levels=self.levels,
-                                     fb_thresh=self.fb_thresh)
-            # drift-free refinement against the birth templates: the
-            # frame-to-frame estimate only seeds the search.  A track whose
-            # refinement fails is KILLED, not left to drift on the
-            # frame-to-frame estimate (SVO-style alignment gate).
-            p_ref, ok_ref, _ = klt.refine_on_templates(
-                img_d, torch.as_tensor(self.tmpl_T, device=self.device),
-                torch.as_tensor(self.tmpl_Gx, device=self.device),
-                torch.as_tensor(self.tmpl_Gy, device=self.device), p1, ok)
-            p1 = p_ref.cpu().numpy().astype(np.float64)
-            ok = ok.cpu().numpy() & ok_ref.cpu().numpy() & self.valid
+        if have_prev and bool(np.any(self.valid)):
+            # frame-to-frame KLT, then drift-free refinement against the
+            # birth templates: a track whose refinement fails is KILLED,
+            # not left to drift on the frame-to-frame estimate (SVO-style
+            # alignment gate).  The frame replaces the previous one in
+            # prev_img.
+            p1, ok = self._run("track", key, [img, self.pos, self.valid, self.tmpl_T,
+                                               self.tmpl_Gx, self.tmpl_Gy],
+                               [self.prev_img], keep=[self.prev_img])
+            p1 = p1.astype(np.float64)
+            ok = ok & self.valid
             # RANSAC-F outlier rejection on normalized coords
             # (rejectWithF, feature_tracker.cpp:169-202)
             if ok.sum() >= 15:
-                un0 = self._lift(self.pos)
-                un1 = self._lift(p1)
-                _, inl, n_inl = sfm.essential_ransac(
-                    self._positions(un0), self._positions(un1),
-                    self._flags(ok), self._ransac_generator(),
-                    thresh=self.f_thresh)
+                idx = sfm.ransac_samples(ok, key.n_hyp, self._ransac_generator())
+                inl, n_inl = self._run("reject", key, [self.pos, p1, ok, idx.numpy()])
                 if int(n_inl) >= 8:
-                    ok &= inl.cpu().numpy()
+                    ok &= inl
             self.pos = np.where(ok[:, None], p1, self.pos)
             self.ids = np.where(ok, self.ids, -1)
             self.track_cnt = np.where(ok, self.track_cnt + 1, 0)
             self._enforce_min_dist()
+        else:
+            self._run("image", key, [img], keep=[self.prev_img])
 
         # replenish with new detections away from current tracks
         n_live = int(self.valid.sum())
         n_new = self.max_cnt - n_live
         new_slots = []
         if n_new > 0:
-            occ = detect.occupancy_from_points(
-                img.shape, self._positions(self.pos), self._flags(self.valid),
-                self.min_dist)
-            xy, _, dvalid = detect.detect(
-                img_d, occ, max_corners=self.max_cnt,
-                min_dist=self.min_dist)
-            xy = xy.cpu().numpy()
-            dvalid = dvalid.cpu().numpy()
+            xy, dvalid = self._run("detect", key, [self.pos, self.valid], [self.prev_img])
             free = np.where(~self.valid)[0]
             picked = np.where(dvalid)[0][:len(free)]
             for slot, k in zip(free, picked):
@@ -180,14 +285,14 @@ class FeatureTracker:
             upd |= self.valid & (self.track_cnt > 1) & \
                    (self.track_cnt % self.reanchor_every == 0)
         if upd.any():
-            T, Gx, Gy = klt.sample_templates(img_d, self._positions(self.pos))
-            self.tmpl_T[upd] = T.cpu().numpy()[upd]
-            self.tmpl_Gx[upd] = Gx.cpu().numpy()[upd]
-            self.tmpl_Gy[upd] = Gy.cpu().numpy()[upd]
+            T, Gx, Gy = self._run("templates", key, [self.pos], [self.prev_img])
+            self.tmpl_T[upd] = T[upd]
+            self.tmpl_Gx[upd] = Gx[upd]
+            self.tmpl_Gy[upd] = Gy[upd]
 
         # undistort + velocities (undistortedPoints,
         # feature_tracker.cpp:258-305)
-        un = self._lift(self.pos)
+        un = self._run("lift", key, [self.pos])[0].astype(np.float64)
         dt = (t - self.prev_t) if self.prev_t is not None else None
         out = {}
         for slot in np.where(self.valid & (self.track_cnt > 1))[0]:
@@ -197,7 +302,6 @@ class FeatureTracker:
                 np.array([un[slot, 0], un[slot, 1], 1.0]),
                 self.pos[slot].copy(), vel)
 
-        self.prev_img = img_d
         self.prev_t = t
         self.prev_un = un
         self.frame_idx += 1

@@ -5,8 +5,9 @@ Port of ``vio_tpu/init/sfm.py`` (reference: vins-mono/src/initial/
 initial_sfm.cpp:5-313 GlobalSFM, initial/solve_5pts.cpp:5-230
 MotionEstimator, 05-frontend-feature-matching/03-pnp/GN-BA.cpp:64-157).
 The geometry functions are batched over leading dimensions in place of
-``vmap``; RANSAC is one batched hypothesis sweep whose samples come from
-a seeded ``torch.Generator`` (so its bits differ from ``jax.random``'s;
+``vmap``; RANSAC is one batched hypothesis sweep (``ops/ransac.py``: a
+CUDA kernel on the card) whose samples come from a seeded
+``torch.Generator`` on the host (so its bits differ from ``jax.random``'s;
 the consensus refit makes E independent of the draw on clean data).
 
 Camera-pose convention throughout: (R, t) = world→camera, x_cam = R X + t.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import ransac
 from ..utils import lie
 from ..solver import generic
 
@@ -128,64 +130,64 @@ def pnp_gn(X, obs, mask, R0, t0, iters: int = 10):
 # (solve_5pts.cpp:5-230)
 # ---------------------------------------------------------------------------
 
-def _eight_point(x0, x1, w):
-    """Weighted least-squares E from correspondences (N,2)+(N,2) with
-    weights w (..., N), batched over w's leading dims."""
-    a = torch.stack([
-        x1[:, 0] * x0[:, 0], x1[:, 0] * x0[:, 1], x1[:, 0],
-        x1[:, 1] * x0[:, 0], x1[:, 1] * x0[:, 1], x1[:, 1],
-        x0[:, 0], x0[:, 1], torch.ones_like(x0[:, 0]),
-    ], dim=-1) * w[..., None]                                   # (..., N, 9)
-    _, _, Vt = torch.linalg.svd(a, full_matrices=False)
-    E = Vt[..., -1, :].reshape(w.shape[:-1] + (3, 3))
-    # project onto the essential manifold (rank 2, equal singular values)
-    U, _, Vt2 = torch.linalg.svd(E)
-    d = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
-    return (U * d) @ Vt2
+def ransac_samples(valid, n_hyp: int, generator: torch.Generator) -> torch.Tensor:
+    """The minimal samples of a RANSAC round: (n_hyp, 8) int64 row indices
+    on the CPU, each drawn without replacement from the rows that the host
+    mask ``valid`` (N,) marks (the others weigh 1e-9), by ``generator`` (a
+    CPU generator).
+
+    The draw runs on one intra-op thread (the setting is the calling
+    thread's).  Its bits do not depend on the thread count, and its
+    parallel exponential draw contends with the BLAS threads that the
+    estimator's host work leaves spinning: on an 8-core host it took tens
+    of milliseconds inside the image path, against ~2 ms on one thread
+    (scripts/torch_frontend_profile.py measures both)."""
+    p = torch.as_tensor(np.asarray(valid), dtype=torch.float64) + 1e-9
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return torch.multinomial(p.expand(n_hyp, p.shape[0]), 8, replacement=False,
+                                 generator=generator)
+    finally:
+        torch.set_num_threads(threads)
 
 
-def _epipolar_err(E, x0, x1):
-    """Sampson distance of normalized correspondences to E (..., 3, 3)."""
-    h0 = torch.cat([x0, torch.ones_like(x0[:, :1])], -1)
-    h1 = torch.cat([x1, torch.ones_like(x1[:, :1])], -1)
-    Ex0 = h0 @ E.transpose(-1, -2)                              # (..., N, 3)
-    Etx1 = h1 @ E
-    num = torch.sum(h1 * Ex0, dim=-1) ** 2
-    den = Ex0[..., 0] ** 2 + Ex0[..., 1] ** 2 + Etx1[..., 0] ** 2 + Etx1[..., 1] ** 2
-    return num / torch.clamp(den, min=1e-30)
+def essential_ransac_from_samples(x0, x1, valid, idx, thresh=0.3 / 460.0):
+    """RANSAC E over masked correspondences from the samples idx (n_hyp,
+    8) on x0's device; returns (E, inlier_mask, count), all on the device,
+    with no host read (so it can be captured into a CUDA graph).
+
+    The hypothesis sweep and the refit on the best hypothesis's consensus
+    set are ``ops.ransac``'s (the kernel on the card, its plain version on
+    the CPU); the argmax over the counts and the consensus set of the best
+    E are torch ops."""
+    Es, scores = ransac.sweep(x0, x1, valid, idx, thresh)
+    best = torch.argmax(scores)
+    E0 = torch.index_select(Es, 0, best.reshape(1))[0]
+    xm0, xm1 = ransac.masked(x0, x1, valid)
+    inl = (ransac.epipolar_err(E0, xm0, xm1) < thresh ** 2) & valid
+    return ransac.refit(x0, x1, valid, inl.to(x0.dtype), thresh)
 
 
 def essential_ransac(x0, x1, valid, generator: torch.Generator,
-                     thresh=0.3 / 460.0, n_hyp: int = 256):
+                     thresh=0.3 / 460.0, n_hyp: int = 256, host_valid=None):
     """RANSAC E over masked correspondences; returns (E, inlier_mask, count).
 
     x0/x1 (N,2) normalized coords in the two frames (x1 in the second),
     valid (N,) which rows are real.  Minimal 8-point samples are drawn
     without replacement from the valid rows by ``generator`` (a CPU
-    generator).  thresh follows the reference's
-    cv::findFundamentalMat(..., 0.3 / 460, 0.99) (solve_5pts.cpp:199).
-    Rows outside ``valid`` are zeroed first: the tracker passes the lifts
-    of failed tracks, which can be NaN, and NaN·0 would reach every
-    hypothesis's SVD, which torch refuses (in vio_tpu it turns every
-    hypothesis to NaN, so that frame keeps its outliers)."""
-    N = x0.shape[0]
-    x0 = torch.where(valid[:, None], x0, 0.0)
-    x1 = torch.where(valid[:, None], x1, 0.0)
-    p = valid.to(device="cpu", dtype=torch.float64) + 1e-9
-    idx = torch.multinomial(p.expand(n_hyp, N), 8, replacement=False,
-                            generator=generator).to(x0.device)  # (n_hyp, 8)
-    w = torch.zeros((n_hyp, N), dtype=x0.dtype, device=x0.device)
-    w.scatter_(1, idx, 1.0)
-    w = w * valid
-    Es = _eight_point(x0, x1, w)                                # (n_hyp, 3, 3)
-    inl = (_epipolar_err(Es, x0, x1) < thresh * thresh) & valid
-    best = torch.argmax(torch.sum(inl, dim=-1))
-    E0 = Es[best]
-    # refit on the consensus set
-    inl = (_epipolar_err(E0, x0, x1) < thresh ** 2) & valid
-    E = _eight_point(x0, x1, inl.to(x0.dtype))
-    inl = (_epipolar_err(E, x0, x1) < thresh ** 2) & valid
-    return E, inl, torch.sum(inl)
+    generator), weighted by the caller's host copy of the mask,
+    ``host_valid``, where it has one (else ``valid`` is read back).
+    thresh follows the reference's cv::findFundamentalMat(..., 0.3 / 460,
+    0.99) (solve_5pts.cpp:199).  Rows outside ``valid`` are zeroed first:
+    the tracker passes the lifts of failed tracks, which can be NaN, and
+    NaN·0 would reach every hypothesis's SVD, which torch refuses (in
+    vio_tpu it turns every hypothesis to NaN, so that frame keeps its
+    outliers)."""
+    if host_valid is None:
+        host_valid = valid.cpu().numpy()
+    idx = ransac_samples(host_valid, n_hyp, generator).to(x0.device)
+    return essential_ransac_from_samples(x0, x1, valid, idx, thresh)
 
 
 def recover_pose(E, x0, x1, mask):
@@ -231,7 +233,8 @@ def relative_rotation(x0, x1, seed=0, thresh=0.3 / 460.0,
     x0t = torch.as_tensor(x0, dtype=dtype, device=device)
     x1t = torch.as_tensor(x1, dtype=dtype, device=device)
     valid = torch.ones(len(x0), dtype=torch.bool, device=device)
-    E, inl, _ = essential_ransac(x0t, x1t, valid, gen, thresh)
+    E, inl, _ = essential_ransac(x0t, x1t, valid, gen, thresh,
+                                 host_valid=np.ones(len(x0), bool))
     if not bool(torch.all(torch.isfinite(E))):
         return None
     R, _, _ = recover_pose(E, x0t, x1t, inl)
@@ -257,7 +260,7 @@ def solve_relative_rt(x0, x1, valid, seed=0, thresh=0.3 / 460.0,
     x0t = torch.as_tensor(np.asarray(x0), dtype=dtype, device=device)
     x1t = torch.as_tensor(np.asarray(x1), dtype=dtype, device=device)
     E, inl, _ = essential_ransac(x0t, x1t, torch.as_tensor(valid, device=device),
-                                 gen, thresh)
+                                 gen, thresh, host_valid=valid)
     R, t, votes = recover_pose(E, x0t, x1t, inl)
     if int(votes) > 12:
         R = R.cpu().numpy().astype(np.float64)

@@ -101,6 +101,15 @@ def load() -> ctypes.CDLL:
     lib.gj_solve_work_elems.restype = ctypes.c_longlong
     lib.gj_solve_error_string.argtypes = [ci]
     lib.gj_solve_error_string.restype = ctypes.c_char_p
+    for name, scalar in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        fn = getattr(lib, f"essential_sweep_{name}")
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, scalar, vp, vp, vp, vp]
+        fn.restype = ci
+        fn = getattr(lib, f"essential_refit_{name}")
+        fn.argtypes = [vp, vp, vp, vp, ci, scalar, vp, vp, vp, vp, vp]
+        fn.restype = ci
+    lib.essential_ransac_prepare.argtypes = []
+    lib.essential_ransac_prepare.restype = ci
     return lib
 
 

@@ -30,8 +30,23 @@ and so the ``gj_solve`` kernel, run only in replays.
 ``ops.linsolve.gj_solve`` counts the launches a capture records
 (``gj_solve.captured``); each replay adds them to ``gj_solve.launches``.
 
+A ``ProgramGraph`` is the one-shot counterpart, for a jitted function
+with no loop in it (the tracker's programs, ``features/tracker.py``): a
+pinned input slab, one graph, one replay a call and one device-to-host
+copy of its packed outputs; what the function keeps on the device (the
+tracker's image) is copied into the caller's tensors after the replay.
+It keeps ``LoopGraph``'s rules: keys hold what ``jax.jit`` holds static,
+capture runs on its own stream in ``thread_local`` mode after the
+thread's one eager warm-up on a device and dtype, and there is no
+fallback.  ``run_eagerly`` runs the same function without a graph: the
+CPU's path.  Captures are serialised by one lock (a thread that captures
+calls ``torch.cuda.synchronize()`` on entry, which must not meet another
+thread's capture); replays are not.  Every kernel wrapper in
+``COUNTED`` counts the launches a capture records (``.captured``), and
+each replay adds them to its ``.launches``.
+
 Nothing here runs on the CPU: the CPU runs the same functions eagerly
-(``lm.solve_window``, ``frame_step.frame_step``).
+(``lm.solve_window``, ``frame_step.frame_step``, ``run_eagerly``).
 """
 from __future__ import annotations
 
@@ -42,7 +57,7 @@ from collections import Counter
 import numpy as np
 import torch
 
-from ..ops import _build, linsolve
+from ..ops import _build, linsolve, ransac
 from . import lm
 
 # λ-attempts between two host reads of the loop's condition (and in the
@@ -50,15 +65,21 @@ from . import lm
 CHUNK = 1
 
 # Totals over the process: keys, graphs captured, seconds spent capturing
-# (the warm-ups included), replays, the attempts they made, host reads of
-# the condition, and the bytes the keys' memory pools hold.
-# ``reset_stats`` zeroes them.
+# (the warm-ups included), the bytes the keys' memory pools hold; of the
+# LoopGraphs the replays, the attempts they made and the host reads of the
+# condition; of the ProgramGraphs the replays and the host reads of the
+# outputs (program_replays, program_reads).  ``reset_stats`` zeroes them.
 STATS: Counter = Counter()
+
+# The kernel wrappers whose launches a graph holds: each counts the
+# launches it records into a capture (.captured) and its launches (.launches).
+COUNTED = (linsolve.gj_solve, ransac.sweep, ransac.refit)
 
 _NP = {torch.float32: np.float32, torch.float64: np.float64,
        torch.bool: np.bool_, torch.int64: np.int64}
 _CACHE: dict = {}
 _LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.Lock()
 _WARM: set = set()
 _STREAMS: dict = {}
 
@@ -106,20 +127,26 @@ class Slab:
         self.host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
         self.dev = torch.empty(n, dtype=torch.uint8, device=device)
         host_np = self.host.numpy()
+        self.ends = ends.tolist() if sizes else []
         self.views, self.host_views = [], []
         for (shape, dt), nb, o in zip(specs, sizes, [0, *ends[:-1].tolist()]):
             self.views.append(self.dev[o:o + nb].view(dt).view(shape))
             self.host_views.append(host_np[o:o + nb].view(_NP[dt]).reshape(shape))
 
     def upload(self, arrays) -> None:
-        """Write host arrays into the staging buffer, then one copy."""
+        """Write host arrays into the first views' staging buffer, then
+        one copy of those views."""
+        arrays = list(arrays)
         for v, a in zip(self.host_views, arrays):
             v[...] = a
-        self.dev.copy_(self.host, non_blocking=True)
+        if arrays:
+            end = self.ends[len(arrays) - 1]
+            self.dev[:end].copy_(self.host[:end], non_blocking=True)
 
-    def load(self, tensors) -> None:
-        """Copy device tensors into the views (one copy each)."""
-        for v, t in zip(self.views, tensors):
+    def load(self, tensors, start: int = 0) -> None:
+        """Copy device tensors into the views from ``start`` on (one copy
+        each)."""
+        for v, t in zip(self.views[start:], tensors):
             v.copy_(t)
 
 
@@ -130,10 +157,91 @@ def _capture_stream(device):
         return _STREAMS[device]
 
 
+def _captured() -> list[int]:
+    return [fn.captured for fn in COUNTED]
+
+
+def _replayed(counts) -> None:
+    """Add a replay's launches to each counted wrapper."""
+    for fn, n in zip(COUNTED, counts):
+        fn.launches += n
+
+
 def _leaves(tree) -> list:
     if isinstance(tree, (tuple, list)):
         return [x for t in tree for x in _leaves(t)]
     return [tree]
+
+
+def _capture_key(device, dtypes: tuple, warm_up, body) -> int:
+    """Capture one key's graphs: under the capture lock, ``warm_up()``
+    eagerly on the capture stream if this thread has captured nothing on
+    ``device`` in ``dtypes`` yet, then ``body(stream)``, which captures.
+    Adds the seconds and the bytes the key's pool keeps to STATS and
+    returns those bytes."""
+    t0 = time.perf_counter()
+    _build.load()                     # nvcc must never run inside a capture
+    stream = _capture_stream(device)
+    with _CAPTURE_LOCK:
+        warm_key = (threading.get_ident(), device, dtypes)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        if warm_key not in _WARM:
+            # library handles and workspaces come into being here, on the
+            # capture stream, not inside the capture
+            with torch.cuda.stream(stream):
+                warm_up()
+            stream.synchronize()
+            _WARM.add(warm_key)
+        torch.cuda.empty_cache()          # the pool's size: what stays reserved
+        reserved = torch.cuda.memory_reserved(device)
+        body(stream)
+        torch.cuda.empty_cache()
+        pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    STATS["pool_bytes"] += pool_bytes
+    STATS["capture_s"] += time.perf_counter() - t0
+    return pool_bytes
+
+
+def _capture(fn, stream, pool=None):
+    """One graph of ``fn()`` on ``stream``: (the graph, ``fn``'s output,
+    each COUNTED wrapper's launches the graph holds)."""
+    g = torch.cuda.CUDAGraph()
+    before = _captured()
+    with torch.cuda.graph(g, pool=pool, stream=stream, capture_error_mode="thread_local"):
+        out = fn()
+    STATS["captures"] += 1
+    return g, out, [a - b for a, b in zip(_captured(), before)]
+
+
+def _pack(outs) -> tuple:
+    """Inside a capture: the tensors ``outs`` as one float64 device buffer
+    (None for none), and each one's shape and host dtype."""
+    packed = torch.cat([t.reshape(-1).to(torch.float64) for t in outs]) if outs else None
+    return packed, [(tuple(t.shape), _NP[t.dtype]) for t in outs]
+
+
+class _Readback:
+    """A graph's packed outputs (``_pack``) and the pinned host buffer
+    they come back to in one device-to-host copy."""
+
+    def __init__(self, packed, meta):
+        self.packed, self.meta = packed, meta
+        self.host = (torch.empty(packed.shape, dtype=torch.float64, pin_memory=True)
+                     if packed is not None else None)
+
+    def read(self) -> list[np.ndarray]:
+        """The outputs as host arrays of the dtypes in ``meta`` (one copy,
+        which synchronises)."""
+        if self.packed is None:
+            return []
+        self.host.copy_(self.packed)
+        flat = self.host.numpy()
+        out, o = [], 0
+        for shape, dt in self.meta:
+            n = int(np.prod(shape, dtype=np.int64))
+            out.append(flat[o:o + n].reshape(shape).astype(dt))
+            o += n
+        return out
 
 
 class LoopGraph:
@@ -152,69 +260,42 @@ class LoopGraph:
         self.inputs = Slab(specs, self.device)
         self._fns = (head, chunk, tail)
         self.graphs = None
-        self.launches = {}        # gj_solve launches each graph holds
+        self.launches = {}        # each COUNTED wrapper's launches a graph holds
         self.pool_bytes = 0
-
-    def _capture(self, name, fn, pool, stream):
-        g = torch.cuda.CUDAGraph()
-        before = linsolve.gj_solve.captured
-        with torch.cuda.graph(g, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            out = fn()
-        self.launches[name] = linsolve.gj_solve.captured - before
-        STATS["captures"] += 1
-        return g, out
 
     def _capture_all(self) -> None:
         head, chunk, tail = self._fns
-        stream = _capture_stream(self.device)
-        t0 = time.perf_counter()
-        _build.load()                     # nvcc must never run inside a capture
-        warm_key = (threading.get_ident(), self.device,
-                    tuple(v.dtype for v in self.inputs.views))
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        if warm_key not in _WARM:
-            # library handles and workspaces come into being here, on the
-            # capture stream, not inside the capture
-            with torch.cuda.stream(stream):
-                carry, aux, _ = head(self.inputs.views, 0)
-                tail(carry, aux)
-            stream.synchronize()
-            _WARM.add(warm_key)
-        torch.cuda.empty_cache()          # the pool's size: what stays reserved
-        reserved = torch.cuda.memory_reserved(self.device)
-        pool = torch.cuda.graph_pool_handle()
 
-        g_head, (carry, aux, live) = self._capture(
-            "head", lambda: head(self.inputs.views, self.chunk), pool, stream)
-        self.carry, self.aux, self.live = carry, aux, live
+        def warm_up():
+            carry, aux, _ = head(self.inputs.views, 0)
+            tail(carry, aux)
 
-        def do_chunk():
-            new, new_live = chunk(self.carry, self.aux, self.chunk)
-            for dst, src in zip(_leaves(self.carry), _leaves(new)):
-                if src is not dst:
-                    dst.copy_(src)
-            self.live.copy_(new_live)
+        def body(stream):
+            pool = torch.cuda.graph_pool_handle()
+            g_head, (carry, aux, live), self.launches["head"] = _capture(
+                lambda: head(self.inputs.views, self.chunk), stream, pool)
+            self.carry, self.aux, self.live = carry, aux, live
 
-        g_chunk, _ = self._capture("chunk", do_chunk, pool, stream)
+            def do_chunk():
+                new, new_live = chunk(self.carry, self.aux, self.chunk)
+                for dst, src in zip(_leaves(self.carry), _leaves(new)):
+                    if src is not dst:
+                        dst.copy_(src)
+                self.live.copy_(new_live)
 
-        def do_tail():
-            outs = tail(self.carry, self.aux)
-            packed = torch.cat([t.reshape(-1).to(torch.float64) for t in outs])
-            return packed, [tuple(t.shape) for t in outs]
+            g_chunk, _, self.launches["chunk"] = _capture(do_chunk, stream, pool)
+            # the outputs come back as float64, whatever their type
+            g_tail, (packed, meta), self.launches["tail"] = _capture(
+                lambda: _pack(tail(self.carry, self.aux)), stream, pool)
+            self.out = _Readback(packed, [(shape, np.float64) for shape, _ in meta])
+            self.graphs = (g_head, g_chunk, g_tail)
 
-        g_tail, (packed, shapes) = self._capture("tail", do_tail, pool, stream)
-        self.packed, self.shapes = packed, shapes
-        self.out_host = torch.empty(packed.shape, dtype=torch.float64, pin_memory=True)
-        self.graphs = (g_head, g_chunk, g_tail)
-        torch.cuda.empty_cache()
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        STATS["pool_bytes"] += self.pool_bytes
-        STATS["capture_s"] += time.perf_counter() - t0
+        self.pool_bytes = _capture_key(self.device, tuple(v.dtype for v in self.inputs.views),
+                                       warm_up, body)
 
     def _replay(self, i: int, name: str) -> None:
         self.graphs[i].replay()
-        linsolve.gj_solve.launches += self.launches[name]
+        _replayed(self.launches[name])
         STATS["replays"] += 1
         if name != "tail":
             STATS["attempts"] += self.chunk
@@ -233,14 +314,7 @@ class LoopGraph:
         while self._live():
             self._replay(1, "chunk")
         self._replay(2, "tail")
-        self.out_host.copy_(self.packed)          # synchronises
-        flat = self.out_host.numpy().copy()
-        out, o = [], 0
-        for shape in self.shapes:
-            n = int(np.prod(shape, dtype=np.int64))
-            out.append(flat[o:o + n].reshape(shape))
-            o += n
-        return out
+        return self.out.read()
 
 
 def loop_graph(key, specs, head, chunk, tail, device) -> LoopGraph:
@@ -252,6 +326,83 @@ def loop_graph(key, specs, head, chunk, tail, device) -> LoopGraph:
             g = _CACHE[(key, CHUNK)] = LoopGraph(key, specs, head, chunk, tail, device)
             STATS["keys"] = len(_CACHE)
         return g
+
+
+class ProgramGraph:
+    """One device program, captured once: ``fn(*inputs) -> (outputs,
+    kept)``, each a list of tensors.  The inputs are the views of one
+    ``Slab`` (``specs``), host arrays first and device tensors after;
+    ``outputs`` come back to the host in one copy after each replay,
+    ``kept`` are copied into the caller's device tensors.  Safe to call
+    from several threads: one call at a time runs a given graph."""
+
+    def __init__(self, key, specs, fn, device):
+        self.key = key
+        self.device = torch.device(device)
+        self.inputs = Slab(specs, self.device)
+        self.fn = fn
+        self.graph = None
+        self.launches = []        # each COUNTED wrapper's launches the graph holds
+        self.pool_bytes = 0
+        self._lock = threading.Lock()
+
+    def _capture(self) -> None:
+        def program():
+            outs, kept = self.fn(*self.inputs.views)
+            return _pack(outs), kept
+
+        def body(stream):
+            self.graph, (outs, kept), self.launches = _capture(program, stream)
+            self.out, self.kept = _Readback(*outs), list(kept)
+
+        self.pool_bytes = _capture_key(self.device, tuple(v.dtype for v in self.inputs.views),
+                                       lambda: self.fn(*self.inputs.views), body)
+
+    def run(self, host=(), device=(), keep=()) -> list[np.ndarray]:
+        """One call: the inputs loaded (``host`` arrays in one upload, then
+        ``device`` tensors), a replay (capturing at the first call), the
+        kept tensors copied into ``keep`` (device tensors of theirs), and
+        the outputs back as host arrays of their own dtypes (one
+        device-to-host copy, which synchronises; none when the program has
+        no outputs)."""
+        with self._lock:
+            host = list(host)
+            self.inputs.upload(host)
+            self.inputs.load(device, start=len(host))
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            _replayed(self.launches)
+            STATS["program_replays"] += 1
+            for dst, src in zip(keep, self.kept):
+                dst.copy_(src)
+            if self.out.packed is None:
+                return []
+            STATS["program_reads"] += 1
+            return self.out.read()
+
+
+def program_graph(key, specs, fn, device) -> ProgramGraph:
+    """The cached ``ProgramGraph`` of ``key``, made on first use."""
+    with _LOCK:
+        g = _CACHE.get(key)
+        if g is None:
+            g = _CACHE[key] = ProgramGraph(key, specs, fn, device)
+            STATS["keys"] = len(_CACHE)
+        return g
+
+
+def run_eagerly(specs, fn, host=(), device=(), keep=(), on=None) -> list[np.ndarray]:
+    """``ProgramGraph.run`` without a graph, on device ``on``: the host
+    arrays become tensors of their specs there, ``fn`` runs op by op, the
+    kept tensors are copied into ``keep``, the outputs come back as host
+    arrays."""
+    host = [torch.as_tensor(np.asarray(a), dtype=dt, device=on)
+            for a, (_, dt) in zip(host, specs)]
+    outs, kept = fn(*host, *device)
+    for dst, src in zip(keep, kept):
+        dst.copy_(src)
+    return [t.cpu().numpy() for t in outs]
 
 
 def _unflatten(template, it):
