@@ -75,10 +75,16 @@ them.  Phases, each of which raises on failure:
    the hypotheses and within 1 on the rest, and in float64 to the
    reference's likewise; in float32 no less accurate than the plain
    float32 version (ACCURACY_RATIO, COUNT_MARGIN); the refit on the best
-   consensus set likewise.  Times the sweep and the refit, the plain version, the
-   library's SVDs (batched ``torch.linalg.svd`` of the gathered (256, 8,
-   9) systems and the 3 × 3 projection) and the bound, from the least
-   operations the functions need at this run's shapes;
+   consensus set likewise, and ``refit_best`` (the choice of the best
+   hypothesis and its consensus set folded into the refit's launch) on the
+   kernel's own sweep against ``refit_best_reference`` run in float64 by
+   the same gates.  Times the sweep, the refit and ``refit_best`` (device
+   ms a call in a CUDA graph's replays, as the tracker runs them, and back
+   to back from Python), the plain versions, the library's SVDs (batched ``torch.linalg.svd`` of the
+   gathered (256, 8, 9) systems and the 3 × 3 projection) and the bound,
+   from the least operations the functions need at this run's shapes; then
+   the device ms of one replay of each tracker key's reject program (phase
+   7's and phase 8's), 20 replays between CUDA events;
 9. async image path: vio_tpu_torch.runner.run_images_async over phase 7's
    frames with phase 7's dtypes: the tracker in a producer thread, the
    native pairer, the estimator in this thread.  Held against phase 7's
@@ -202,7 +208,7 @@ Times are printed and recorded, never asserted.  The script's own time is
 printed after the last phase.  The line before the last
 is the kernels' JSON record: ``gj_solve``, whose ``launches`` sums the
 launches of phases 5, 7, 9, 10, 11-16, 17, 18, 20 and 21, and
-``essential_ransac`` (sweep and refit), whose ``launches`` sums those of
+``essential_ransac`` (sweep, refit and refit_best), whose ``launches`` sums those of
 phases 5, 7, 9, 10, 17, 18, 20 and 21 (the tracker's on the image paths,
 the init's bootstrap on every estimator path).  Each count is set to 0
 just before each path and read just after; in phases 13-14 each rank
@@ -380,12 +386,41 @@ def cuda_ms(fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Mean device ms a call of ``fn``: ``calls`` calls captured into one
+    CUDA graph, as the tracker's programs run the RANSAC kernels, replayed
+    ``reps`` times between CUDA events, so the host's enqueueing of each
+    call (which back-to-back calls from Python measure for kernels of a few
+    tens of microseconds) is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * reps)
+
+
 @contextlib.contextmanager
 def ransac_counted(by_path: dict, label: str):
     """Zero the RANSAC kernel's counts just before a path, record its
     launches under ``label`` just after."""
     from vio_tpu_torch.ops import ransac
-    ransac.sweep.launches = ransac.refit.launches = 0
+    ransac.sweep.launches = ransac.refit.launches = ransac.refit_best.launches = 0
     yield
     by_path[label] = ransac.launches()
 
@@ -926,7 +961,7 @@ def _library_refit(A):
 
 
 # The least arithmetic the RANSAC functions need, by the cheapest direct
-# algorithms, whatever the kernel does (its Jacobi sweeps make several
+# algorithms, whatever the kernels do (the refit's Jacobi sweeps make several
 # times more).  A sample: its design rows (4 products a row), the null
 # vector of its 8 × 9 system by Householder QR of the 9 × 8 transpose
 # (2n²(m − n/3)) and the 8 reflectors applied to e₉ (4(m − k + 1) each),
@@ -1066,17 +1101,50 @@ def ransac_kernel_against_plain(recorded: list, cfg, tag: str, device="cuda") ->
         if not (r_back <= limit and r_proj <= limit and dEr <= E_TOL_C * eps * kr
                 and flips <= 1 and abs(int(c) - int(c64)) <= 1):
             raise AssertionError(f"essential_ransac refit {name}: the kernel disagrees")
+        # refit_best on the kernel's own sweep, against its plain version in
+        # float64 (the same choice of hypothesis: the same counts)
+        eb = torch.empty(9, dtype=dtype, device=device)
+        Eb, inl_b, c_b = ransac.refit_best(x0, x1, valid, E, n, thresh, null_out=eb)
+        torch.cuda.synchronize()
+        Eb64, inl_b64, c_b64 = ransac.refit_best_reference(w0, w1, valid, E.double(), n,
+                                                           thresh)
+        k_best = int(torch.argmax(n))     # its consensus set in the input type, as the kernel's
+        wb = ((ransac.epipolar_err(E[k_best], *ransac.masked(x0, x1, valid))
+               < thresh ** 2) & valid).double().cpu().numpy()
+        Ab = (rows * wb[:, None])[None]
+        kb = float(ransac.e_condition(Ab)[0])
+        b_back = float(ransac.null_backward(Ab, eb.double().cpu().numpy()[None])[0])
+        b_proj = float(ransac.projection_backward(eb.double().cpu().numpy()[None],
+                                                  Eb.double().cpu().numpy()[None])[0])
+        dEb = float(_up_to_sign(Eb.double().cpu().numpy()[None], Eb64.cpu().numpy()[None])[0])
+        b_flips = int((inl_b != inl_b64).sum())
+        print(f"essential_ransac refit_best {name}: hypothesis {k_best}, {int(wb.sum())} rows "
+              f"weighted, backward error of the null vector {b_back:.3e}, of the projection "
+              f"{b_proj:.3e} (limit {limit:.3e}); against refit_best_reference in float64: "
+              f"|dE| up to sign {dEb:.3e} (bound {E_TOL_C * eps * kb:.3e}), {b_flips} inlier "
+              f"flags differ, count {int(c_b)} against {int(c_b64)} {tag}")
+        if not (b_back <= limit and b_proj <= limit and dEb <= E_TOL_C * eps * kb
+                and b_flips <= 1 and abs(int(c_b) - int(c_b64)) <= 1):
+            raise AssertionError(f"essential_ransac refit_best {name}: the kernel disagrees")
 
         At = torch.as_tensor(A, dtype=dtype, device=device)
         Awt = torch.as_tensor(Aw[0], dtype=dtype, device=device)
-        ms = cuda_ms(lambda: ransac.sweep(x0, x1, valid, idx_d, thresh), reps=50, warmup=5)
+        sweep_call = lambda: ransac.sweep(x0, x1, valid, idx_d, thresh)    # noqa: E731
+        refit_call = lambda: ransac.refit(x0, x1, valid, w, thresh)        # noqa: E731
+        best_call = lambda: ransac.refit_best(x0, x1, valid, E, n, thresh)  # noqa: E731
+        ms, r_ms, b_ms = (graph_ms(f) for f in (sweep_call, refit_call, best_call))
+        enq, r_enq, b_enq = (cuda_ms(f, reps=50, warmup=5)
+                             for f in (sweep_call, refit_call, best_call))
         plain_ms = cuda_ms(lambda: ransac.sweep_reference(x0, x1, valid, idx_d, thresh),
                            reps=3, warmup=1)
         library_ms = cuda_ms(lambda: _library_sweep(At), reps=10, warmup=2)
-        r_ms = cuda_ms(lambda: ransac.refit(x0, x1, valid, w, thresh), reps=50, warmup=5)
         r_plain = cuda_ms(lambda: ransac.refit_reference(x0, x1, valid, w, thresh),
                           reps=10, warmup=2)
         r_library = cuda_ms(lambda: _library_refit(Awt), reps=10, warmup=2)
+        b_plain = cuda_ms(lambda: ransac.refit_best_reference(x0, x1, valid, E, n, thresh),
+                          reps=10, warmup=2)
+        Abt = torch.as_tensor(Ab[0], dtype=dtype, device=device)
+        b_library = cuda_ms(lambda: _library_refit(Abt), reps=10, warmup=2)
         # bytes: x0, x1, valid and idx in, E and the counts out; the
         # refit's x0, x1, valid and w in, E, the mask and the count out
         flops = sweep_flops(n_hyp, n_valid)
@@ -1084,23 +1152,69 @@ def ransac_kernel_against_plain(recorded: list, cfg, tag: str, device="cuda") ->
                                    + 8 * n_hyp, dtype)
         r_flops = refit_flops(int((wh > 0).sum()), n_valid)
         r_least, r_by = least_ms(r_flops, 5 * N * elem + N + 9 * elem + N + 8, dtype)
-        print(f"essential_ransac sweep {name} n_hyp={n_hyp} N={N}: kernel {ms:.4f} ms, plain "
+        # refit_best: x0, x1, valid, Es and the counts in; E, the mask and
+        # the count out; the choice (n_hyp compares), E0's Sampson errors,
+        # then the refit
+        b_flops = n_hyp + SAMPSON_FLOPS * n_valid + refit_flops(int((wb > 0).sum()), n_valid)
+        b_least, b_by = least_ms(b_flops, 4 * N * elem + N + 9 * n_hyp * elem + 8 * n_hyp
+                                 + 9 * elem + N + 8, dtype)
+        print(f"essential_ransac kernels {name}, ms a call back to back from Python (the "
+              f"host's enqueueing): sweep {enq:.4f}, refit {r_enq:.4f}, refit_best "
+              f"{b_enq:.4f} {tag}")
+        print(f"essential_ransac sweep {name} n_hyp={n_hyp} N={N}: kernel {ms:.4f} ms (a "
+              f"graph's replays), plain "
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (torch.linalg.svd of the "
               f"gathered systems + the 3x3 projection), bound {least:.3e} ms ({bound_by}; "
               f"{flops / 1e6:.3f} MFLOP) {tag}")
-        print(f"essential_ransac refit {name} N={N}: kernel {r_ms:.4f} ms, plain "
+        print(f"essential_ransac refit {name} N={N}: kernel {r_ms:.4f} ms (replays), plain "
               f"{r_plain:.4f} ms, library {r_library:.4f} ms, bound {r_least:.3e} ms "
               f"({r_by}; {r_flops / 1e6:.3f} MFLOP) {tag}")
+        print(f"essential_ransac refit_best {name} n_hyp={n_hyp} N={N}: kernel {b_ms:.4f} ms "
+              f"(replays), "
+              f"plain {b_plain:.4f} ms (argmax, the consensus set, the plain refit), library "
+              f"{b_library:.4f} ms (the consensus system's SVD + the projection; the choice "
+              f"has no library call), bound {b_least:.3e} ms ({b_by}; "
+              f"{b_flops / 1e6:.3f} MFLOP) {tag}")
         rec[dtype] = dict(err=float(dE[posed].max(initial=0)), backward_err=float(back.max()),
                           projection_err=float(proj.max()), backward_limit=limit,
-                          ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=least,
+                          ms=ms, enqueued_ms=enq, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=least,
                           bound_by=bound_by, count_agree_own=agree,
                           count_agree_plain64=agree_ref, plain_count_agree_plain64=agree_pl,
                           well_posed=int(posed.sum()),
                           refit=dict(err=dEr, backward_err=r_back, projection_err=r_proj,
-                                     ms=r_ms, plain_ms=r_plain, library_ms=r_library,
-                                     bound_ms=r_least, bound_by=r_by))
+                                     ms=r_ms, enqueued_ms=r_enq, plain_ms=r_plain,
+                                     library_ms=r_library,
+                                     bound_ms=r_least, bound_by=r_by),
+                          refit_best=dict(err=dEb, backward_err=b_back, projection_err=b_proj,
+                                          ms=b_ms, enqueued_ms=b_enq, plain_ms=b_plain,
+                                          library_ms=b_library,
+                                          bound_ms=b_least, bound_by=b_by))
     return rec
+
+
+def reject_replay_ms(tag: str) -> dict:
+    """Device ms of one replay of the reject program (the RANSAC: two
+    lifts, the sweep and refit_best) of every tracker key captured so far,
+    20 replays between CUDA events; by the key's shape and CLAHE flag."""
+    from vio_tpu_torch.solver import graph
+
+    out = {}
+    for k, g in list(graph._CACHE.items()):
+        if isinstance(g, graph.ProgramGraph) and k[0] == "reject":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            g.graph.replay()
+            ev[0].record()
+            for _ in range(20):
+                g.graph.replay()
+            ev[1].record()
+            torch.cuda.synchronize()
+            key = k[1]
+            out[f"{key.shape[0]}x{key.shape[1]}{' clahe' if key.equalize else ''}"] = \
+                ev[0].elapsed_time(ev[1]) / 20
+    print("reject program, device ms of one replay: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()) + f" {tag}")
+    return out
 
 
 @contextlib.contextmanager
@@ -2326,6 +2440,7 @@ def main() -> int:
         sim_images_config(), sim.generate(noise=False), N_TWIN_TRACKER_FRAMES,
         "tracker graphs against eager", tag)
     ransac_rec = ransac_kernel_against_plain(recorded, sim_images_config(), tag)
+    reject_ms = reject_replay_ms(tag)
     print(f"chip_smoke: phase 23 (tracker graphs, RANSAC kernel) took "
           f"{time.perf_counter() - t_phase:.1f} s {tag}")
 
@@ -2416,9 +2531,12 @@ def main() -> int:
         "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
         "library_ms": r32["library_ms"],
         "launches_by_path": ransac_by_path,
-        "float64": {k: r64[k] for k in ("err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                       "library_ms")},
+        "enqueued_ms": r32["enqueued_ms"],
+        "float64": {k: r64[k] for k in ("err", "ms", "enqueued_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
         "refit": {"float32": r32["refit"], "float64": r64["refit"]},
+        "refit_best": {"float32": r32["refit_best"], "float64": r64["refit_best"]},
+        "reject_program_replay_ms": reject_ms,
         "backward_err": {"float32": r32["backward_err"], "float64": r64["backward_err"]},
         "projection_err": {"float32": r32["projection_err"],
                            "float64": r64["projection_err"]},

@@ -49,14 +49,15 @@ def _pose(E, x0, x1, inl):
 
 
 def _plain(fn):
-    """Run ``fn`` with ``ops.ransac``'s sweep and refit replaced by their
-    plain versions (which take CUDA tensors too)."""
-    sweep, refit = ransac.sweep, ransac.refit
-    ransac.sweep, ransac.refit = ransac.sweep_reference, ransac.refit_reference
+    """Run ``fn`` with ``ops.ransac``'s kernels replaced by their plain
+    versions (which take CUDA tensors too)."""
+    kernels = ransac.sweep, ransac.refit, ransac.refit_best
+    ransac.sweep, ransac.refit, ransac.refit_best = (
+        ransac.sweep_reference, ransac.refit_reference, ransac.refit_best_reference)
     try:
         return fn()
     finally:
-        ransac.sweep, ransac.refit = sweep, refit
+        ransac.sweep, ransac.refit, ransac.refit_best = kernels
 
 
 def compare(call) -> dict:

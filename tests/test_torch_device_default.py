@@ -155,7 +155,7 @@ def test_inner_functions_keep_no_device_default(fn):
     detect.shi_tomasi_response, detect.detect, detect.occupancy_from_points,
     clahe.clahe, PinholeCamera.lift, PinholeCamera.project,
     sfm.essential_ransac_from_samples, sfm.essential_ransac, sfm.ransac_samples,
-    ransac.sweep, ransac.refit,
+    ransac.sweep, ransac.refit, ransac.refit_best,
     stereo.disparity_from_flow, stereo.disparity_to_pointcloud,
     stereo.points_to_pointcloud, stereo.pearson, icp.umeyama, icp.icp_gn,
     marginalize.marginalize_old, marginalize.marginalize_new,

@@ -157,16 +157,12 @@ def essential_ransac_from_samples(x0, x1, valid, idx, thresh=0.3 / 460.0):
     8) on x0's device; returns (E, inlier_mask, count), all on the device,
     with no host read (so it can be captured into a CUDA graph).
 
-    The hypothesis sweep and the refit on the best hypothesis's consensus
-    set are ``ops.ransac``'s (the kernel on the card, its plain version on
-    the CPU); the argmax over the counts and the consensus set of the best
-    E are torch ops."""
+    Two calls of ``ops.ransac`` (kernels on the card, their plain versions
+    on the CPU): the hypothesis sweep, then the refit on the consensus set
+    of the first hypothesis with the most inliers (``refit_best``, the
+    choice included)."""
     Es, scores = ransac.sweep(x0, x1, valid, idx, thresh)
-    best = torch.argmax(scores)
-    E0 = torch.index_select(Es, 0, best.reshape(1))[0]
-    xm0, xm1 = ransac.masked(x0, x1, valid)
-    inl = (ransac.epipolar_err(E0, xm0, xm1) < thresh ** 2) & valid
-    return ransac.refit(x0, x1, valid, inl.to(x0.dtype), thresh)
+    return ransac.refit_best(x0, x1, valid, Es, scores, thresh)
 
 
 def essential_ransac(x0, x1, valid, generator: torch.Generator,

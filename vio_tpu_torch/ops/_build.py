@@ -1,11 +1,12 @@
 """Build and load the port's native code (plain C interfaces, ctypes).
 
 ``load()`` compiles every ``vio_tpu_torch/csrc/*.cu`` with nvcc for
-``sm_90a`` into one shared library under ``vio_tpu_torch/_build/``, at
-first use and again whenever a source is newer than the library, and
-loads it.  ``load_pairer()`` does the same for the host-only measurement
-pairer (``csrc/pairer.cpp``) with g++, into a library of its own, so a
-machine with g++ and no nvcc can build it.  A missing compiler or a
+``sm_90a`` (one nvcc a source, all started together, then one link) into
+one shared library under ``vio_tpu_torch/_build/``, at first use and
+again whenever a source is newer than the library, and loads it.
+``load_pairer()`` does the same for the host-only measurement pairer
+(``csrc/pairer.cpp``) with g++, into a library of its own, so a machine
+with g++ and no nvcc can build it.  A missing compiler or a
 failed compile raises: there is no fallback.  Both are safe to call from
 several threads.  Importing this module builds nothing.
 """
@@ -60,25 +61,36 @@ def _stale(lib: Path, sources: list[Path]) -> bool:
     return any(s.stat().st_mtime > built for s in sources)
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise on the first that fails.  Returns
+    their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{cmd[0]} failed ({p.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    return "".join(out + err for out, err in outs)
+
+
 def _compile(compiler: list[str], sources: list[Path], lib: Path) -> dict:
-    """Compile ``sources`` into ``lib`` if it is stale.  Returns {"built":
-    bool, "seconds": float, "log": the compiler's output}."""
+    """Compile each of ``sources`` into an object, all at once, and link
+    them into ``lib``, if it is stale.  Returns {"built": bool, "seconds":
+    float, "log": the compiler's output}."""
     with _LOCK:
         if not _stale(lib, sources):
             return dict(built=False, seconds=0.0, log="")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [*compiler, "-o", tmp, *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"{compiler[0]} failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)   # atomic: a concurrent loader sees old or new
-        return dict(built=True, seconds=seconds, log=proc.stdout + proc.stderr)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
+            flags = [f for f in compiler[1:] if f != "-shared"]
+            log = _run([[compiler[0], *flags, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(sources, objs)])
+            out = str(Path(tmp) / lib.name)
+            log += _run([[*compiler, "-o", out, *objs]])
+            os.replace(out, lib)   # atomic: a concurrent loader sees old or new
+        return dict(built=True, seconds=time.perf_counter() - t0, log=log)
 
 
 def build() -> dict:
@@ -108,8 +120,9 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"essential_refit_{name}")
         fn.argtypes = [vp, vp, vp, vp, ci, scalar, vp, vp, vp, vp, vp]
         fn.restype = ci
-    lib.essential_ransac_prepare.argtypes = []
-    lib.essential_ransac_prepare.restype = ci
+        fn = getattr(lib, f"essential_refit_best_{name}")
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, scalar, vp, vp, vp, vp, vp]
+        fn.restype = ci
     return lib
 
 

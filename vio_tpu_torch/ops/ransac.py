@@ -1,18 +1,20 @@
-"""The 8-point RANSAC of the essential matrix: a hand-written CUDA kernel.
+"""The 8-point RANSAC of the essential matrix: hand-written CUDA kernels.
 
 ``init/sfm.py::essential_ransac`` scores ``n_hyp`` minimal 8-point
 samples and refits E on the best one's consensus set.  ``vio_tpu`` runs
 that as one jitted program whose SVDs XLA compiles
-(``vio_tpu/init/sfm.py:172``); here ``sweep`` and ``refit`` send a CUDA
-tensor to ``csrc/essential_ransac.cu`` and a CPU tensor to their plain
-versions, ``sweep_reference`` and ``refit_reference`` (the batched
-``torch.linalg.svd`` that the port ran on every device before the kernel).
-Neither falls back to the other.  The kernel launches on the current
-stream and does not synchronise, so it can be captured into a CUDA graph;
-``torch.linalg.svd`` on the card cannot (it reads cuSOLVER's ``info`` back
-to the host).
+(``vio_tpu/init/sfm.py:172``); here ``sweep`` and ``refit_best`` (the
+refit with the choice of the best hypothesis and its consensus set folded
+in) send CUDA tensors to ``csrc/essential_ransac.cu`` and CPU tensors to
+their plain versions, ``sweep_reference`` and ``refit_best_reference``
+(the batched ``torch.linalg.svd`` that the port ran on every device
+before the kernels).  ``refit`` (``refit_reference``) refits a system the
+caller weighs.  None falls back to its plain version.  The kernels launch
+on the current stream and do not synchronise, so they can be captured
+into a CUDA graph; ``torch.linalg.svd`` on the card cannot (it reads
+cuSOLVER's ``info`` back to the host).
 
-Both take correspondences x0, x1 (N, 2) in normalised coordinates and a
+All take correspondences x0, x1 (N, 2) in normalised coordinates and a
 mask ``valid`` (N,); rows outside ``valid`` count as zero rows, whatever
 they hold (the tracker passes the lifts of failed tracks, which can be
 NaN).  E's sign is arbitrary, in both versions.
@@ -26,8 +28,8 @@ import torch
 
 from . import _build
 
-# The largest N the refit's shared memory holds (essential_ransac.cu's
-# kMaxRefitN): N x 9 doubles, the SVDs' arithmetic in either type.
+# The most rows a refit takes (essential_ransac.cu's kMaxRefitN): one
+# block walks them all, ten chunks of rows a warp at most.
 MAX_REFIT_N = 2048
 
 
@@ -85,6 +87,18 @@ def refit_reference(x0, x1, valid, w, thresh):
     E = eight_point(x0, x1, w)
     inl = (epipolar_err(E, x0, x1) < thresh ** 2) & valid
     return E, inl, torch.sum(inl)
+
+
+def refit_best_reference(x0, x1, valid, Es, counts, thresh):
+    """Plain version of ``refit_best``: the first hypothesis with the
+    largest count (``torch.argmax``), the valid rows within ``thresh`` of
+    its E, then ``refit_reference`` on them.  Returns (E (3, 3), inl (N,),
+    count () int64)."""
+    best = torch.argmax(counts)
+    E0 = torch.index_select(Es, 0, best.reshape(1))[0]
+    xm0, xm1 = masked(x0, x1, valid)
+    inl = (epipolar_err(E0, xm0, xm1) < thresh ** 2) & valid
+    return refit_reference(x0, x1, valid, inl.to(x0.dtype), thresh)
 
 
 def _check(x0, x1, valid, name):
@@ -163,7 +177,15 @@ def sweep(x0, x1, valid, idx, thresh, null_out=None):
     return E, count
 
 
-_PREPARED: set = set()    # devices whose refit may take its shared memory
+def _refit_outputs(x0, N):
+    return (torch.empty((3, 3), dtype=x0.dtype, device=x0.device),
+            torch.empty((N,), dtype=torch.bool, device=x0.device),
+            torch.empty((), dtype=torch.int64, device=x0.device))
+
+
+def _check_rows(N, name) -> None:
+    if N > MAX_REFIT_N:
+        raise ValueError(f"{name} takes at most {MAX_REFIT_N} rows (MAX_REFIT_N), got {N}")
 
 
 def refit(x0, x1, valid, w, thresh, null_out=None):
@@ -176,26 +198,15 @@ def refit(x0, x1, valid, w, thresh, null_out=None):
         return refit_reference(x0, x1, valid, w, thresh)
     x0, x1, valid = _check(x0, x1, valid, "ransac.refit")
     N = x0.shape[0]
-    if N > MAX_REFIT_N:
-        raise ValueError(f"ransac.refit holds at most {MAX_REFIT_N} rows in shared "
-                         f"memory, got {N}")
+    _check_rows(N, "ransac.refit")
     if w.shape != (N,) or w.dtype != x0.dtype or w.device != x0.device:
         raise ValueError(f"ransac.refit: w must be ({N},) {x0.dtype} on {x0.device}")
     _check_null(null_out, (9,), x0, "ransac.refit")
     w = w.contiguous()
     lib = _build.load()
-    dev = x0.device.index if x0.device.index is not None else torch.cuda.current_device()
+    E, inl, count = _refit_outputs(x0, N)
+    fn = lib.essential_refit_f32 if x0.dtype == torch.float32 else lib.essential_refit_f64
     with torch.cuda.device(x0.device):
-        if dev not in _PREPARED:
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError("ransac.refit: the first refit on a device must run "
-                                   "outside a graph capture")
-            _raise(lib, lib.essential_ransac_prepare(), "ransac.refit (shared memory)")
-            _PREPARED.add(dev)
-        E = torch.empty((3, 3), dtype=x0.dtype, device=x0.device)
-        inl = torch.empty((N,), dtype=torch.bool, device=x0.device)
-        count = torch.empty((), dtype=torch.int64, device=x0.device)
-        fn = lib.essential_refit_f32 if x0.dtype == torch.float32 else lib.essential_refit_f64
         rc = fn(x0.data_ptr(), x1.data_ptr(), valid.data_ptr(), w.data_ptr(), N,
                 _scalar(x0.dtype)(thresh ** 2), E.data_ptr(), inl.data_ptr(),
                 count.data_ptr(), None if null_out is None else null_out.data_ptr(),
@@ -205,23 +216,62 @@ def refit(x0, x1, valid, w, thresh, null_out=None):
     return E, inl, count
 
 
+def refit_best(x0, x1, valid, Es, counts, thresh, null_out=None):
+    """``refit`` on the consensus set of the best hypothesis, in one
+    launch: the first of the largest ``counts`` (n_hyp,) int64, the valid
+    rows whose Sampson error under its E (of ``Es`` (n_hyp, 3, 3)) is below
+    ``thresh`` (in the input type) weighing 1, the others 0.  Returns (E
+    (3, 3), inl (N,), count () int64).  The kernel on CUDA tensors (N ≤
+    MAX_REFIT_N, or it raises), ``refit_best_reference`` on CPU tensors;
+    ``null_out`` as ``refit``'s."""
+    if not x0.is_cuda:
+        return refit_best_reference(x0, x1, valid, Es, counts, thresh)
+    x0, x1, valid = _check(x0, x1, valid, "ransac.refit_best")
+    N, n_hyp = x0.shape[0], Es.shape[0]
+    _check_rows(N, "ransac.refit_best")
+    if (Es.shape != (n_hyp, 3, 3) or Es.dtype != x0.dtype or Es.device != x0.device
+            or n_hyp < 1 or counts.shape != (n_hyp,) or counts.dtype != torch.int64
+            or counts.device != x0.device):
+        raise ValueError(f"ransac.refit_best: Es must be (n_hyp, 3, 3) {x0.dtype} and counts "
+                         f"(n_hyp,) int64 on {x0.device}, got {tuple(Es.shape)} {Es.dtype} "
+                         f"on {Es.device}, {tuple(counts.shape)} {counts.dtype} on "
+                         f"{counts.device}")
+    _check_null(null_out, (9,), x0, "ransac.refit_best")
+    Es, counts = Es.contiguous(), counts.contiguous()
+    lib = _build.load()
+    E, inl, count = _refit_outputs(x0, N)
+    fn = (lib.essential_refit_best_f32 if x0.dtype == torch.float32
+          else lib.essential_refit_best_f64)
+    with torch.cuda.device(x0.device):
+        rc = fn(x0.data_ptr(), x1.data_ptr(), valid.data_ptr(), Es.data_ptr(),
+                counts.data_ptr(), n_hyp, N, _scalar(x0.dtype)(thresh ** 2), E.data_ptr(),
+                inl.data_ptr(), count.data_ptr(),
+                None if null_out is None else null_out.data_ptr(), _stream(x0.device))
+    _raise(lib, rc, "ransac.refit_best")
+    _count(refit_best)
+    return E, inl, count
+
+
 sweep.launches = 0    # launches on the card, a graph's replays included
 sweep.captured = 0    # launches recorded into CUDA graphs (solver/graph.py)
 refit.launches = 0
 refit.captured = 0
+refit_best.launches = 0
+refit_best.captured = 0
 
 
 def launches() -> int:
-    """The kernel's launches so far, sweeps and refits."""
-    return sweep.launches + refit.launches
+    """The kernels' launches so far: sweeps, refits and best refits."""
+    return sweep.launches + refit.launches + refit_best.launches
 
 
 # ---------------------------------------------------------------------------
 # Accuracy, on the host in float64.  What the kernel's E is held to: its
 # null vector's backward error and its projection's, each at most
-# BACKWARD_C · eps of its type, whatever the sample's condition (one-sided
-# Jacobi's backward error is O(eps) a rotation; a column takes 8
-# rotations a sweep, a sample ~7-9 sweeps).  The tracker's minimal
+# BACKWARD_C · eps of its type, whatever the sample's condition (a
+# Householder reflection's or a Jacobi rotation's backward error is O(eps);
+# a sample takes 8 reflections, a refit's triangle a few sweeps of 9 steps
+# after its QR, each in double).  The tracker's minimal
 # samples have κ ~ 1e4-1e5, so a backward-stable E is bounded in float32
 # only to eps·κ ~ 1e-2; what tells a kernel from its plain version there is
 # how far each lands from the float64 answer (chip_smoke.py, phase 23).
