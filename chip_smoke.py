@@ -126,15 +126,43 @@ them.  Phases, each of which raises on failure:
    the start's; the port's float32 runs on the CPU end between 2.5e-5 and
    3.8e-3 m, by the order of their sums; scripts/torch_scale_out_cpu.py
    jax).
-   Prints P, the regime, iterations, chi², pose error, wall seconds, the
-   launches, and from a second, instrumented run the milliseconds per
-   λ-attempt of assembly, the Schur product, the solve and the rest
-   (synchronised around each);
+   ``solve`` runs on the card from captured CUDA graphs
+   (``global_ba.solve_graphed``): the first call captures the key's graphs
+   and solves (its launches are the record's, all graph replays, one
+   ``gj_solve`` an attempt), a second call is timed alone (one host read
+   per ``graph.CHUNK`` attempts is held).  Its eager twin
+   (``global_ba.solve_eager``) runs on the same inputs: both runs are held
+   to the bounds above; in float64 they must also take the same
+   iterations and end within GLOBAL_TWIN_DP64; in float32 the iterations
+   and the largest |Δp| are printed.  Prints P, the regime, iterations,
+   chi², pose error, the launches, the first call's seconds with the
+   keys, graphs, capture seconds (the kernels' build not among them) and
+   pool MiB, the wall ms of a graphed
+   solve against the eager twin's, replays and reads a solve, and from a
+   third, instrumented eager run the milliseconds per λ-attempt of
+   assembly, the Schur product, the solve and the rest (synchronised
+   around each);
 12. global BA at SCALING.md's largest size on one card: 64 keyframes,
    131,072 landmarks, 1,048,576 observation slots, P = 384, 8 LM
-   iterations, float32.  Held to: chi² below chi²₀ and the poses closer
-   to the truth than the perturbed start.  Prints phase 11's lines and the
-   peak device memory;
+   iterations, float32, graphed and eager as phase 11.  Held to: chi²
+   below chi²₀ and the poses closer to the truth than the perturbed start,
+   both runs.  Prints phase 11's lines and the peak device memory of each;
+   then ``graph.clear()`` drops every captured key, so that later phases
+   get the pools' memory back;
+24. PCG on the card, right after phase 12: ``pcg.pcg_solve`` (its own
+   captured graphs, ``pcg.pcg_solve_graphed``) against its eager twin
+   ``pcg.pcg_solve_eager`` on seeded SPD systems (``spd_system``) at P ∈
+   PCG_SIZES in float32 and float64, held to the same iterations and the
+   true relative residual ≤ PCG_RTOL of the type for both, float64 x to a
+   float64 direct solve within κ·rtol; the largest |Δx| and each side's
+   ms a solve are printed.  Then ``global_ba.solve(use_pcg=True)`` on
+   phase 11's float64 problem (the eager attempt loop, PCG graphed inside
+   it), held to tests/test_global_ba.py's larger-window bounds (chi² <
+   1e-8 chi²₀, pose error < 1e-4 m), its |Δp| against phase 11's direct
+   graphed solve printed; and ``global_ba.solve`` at 200 keyframes
+   (GLOBAL_PCG, P = 1200: ``spd_solve``'s PCG route) in float64, held to
+   descent (chi² < chi²₀, pose error below the start's), with its wall
+   time, CG iterations and reads an attempt printed;
 13. distributed global BA: ``global_ba.solve_sharded`` at 64 keyframes,
    8,192 landmarks (65,536 observations), 8 iterations, in float64 and
    float32, on 1 rank under NCCL and on 2 ranks under gloo sharing the
@@ -291,6 +319,16 @@ GLOBAL_DIST = dict(N=64, M=8192, obs_per_lm=8)           # SCALING.md's second r
 GLOBAL_PERTURB = dict(pose_sigma=0.02, rot_sigma=0.005)
 GLOBAL_F32_POSE_TOL = 0.01     # m; the JAX package's float32 run: 0.00381 m (phase 11)
 GLOBAL_F32_CHI2_64 = 1e-6      # of chi²₀, in float64; the JAX package's float32 run: 8.669e-08
+# phase 11: the graphs and the eager twin run the same kernels in the same
+# order; float64 poses are held to agree within float64 round-off of an LM
+# solve (the index_add_ atomics may order a sum otherwise)
+GLOBAL_TWIN_DP64 = 1e-9        # m
+GLOBAL_PCG = dict(N=200, M=800, obs_per_lm=8)            # P = 1200 > gj_solve's 1024
+PCG_SIZES = (600, 1200)        # phase 24: global BA's P at 100 and 200 keyframes
+PCG_COND = 1e3                 # eigenvalue spread of phase 24's systems (κ ~1.6e4 with the diagonal)
+# phase 24's rtol by type: float64 global BA's (use_pcg), float32 well above
+# eps·κ, where the recursive residual still tracks the true one
+PCG_RTOL = {torch.float32: 1e-3, torch.float64: 1e-8}
 BAL_LADYBUG = dict(C=49, M=7776, per_point=4)   # problem-49-7776-pnts
 DIST_TIMEOUT_S = 600
 TD_TRUE = 0.006                # s; tests/test_td.py's online-td stream (phase 17)
@@ -1243,31 +1281,62 @@ def stage_timers(*targets):
             setattr(mod, name, fn)
 
 
-def global_ba_run(label: str, gt, noisy, kw: dict, tag: str, memory: bool = False) -> dict:
-    """Phases 11-12: one counted run of ``global_ba.solve`` and one run
-    with every stage synchronised.  Returns the counted run's numbers."""
+def global_ba_run(label: str, gt, noisy, kw: dict, tag: str, ok, memory: bool = False) -> dict:
+    """Phases 11-12: ``global_ba.solve`` on the card, which replays the
+    key's captured graphs: a first, counted call (the capture and one
+    replayed solve), a second call timed alone; then the eager twin
+    (``solve_eager``) on the same inputs, and one more eager run with every
+    stage synchronised for the per-attempt breakdown.  ``ok(out, stats)``
+    holds a run to the phase's bounds (raises); both runs are held.
+    Returns the counted run's result and launches, and its distance from
+    the twin's."""
     from vio_tpu_torch.ops import _build, linsolve
     from vio_tpu_torch.parallel import global_ba
+    from vio_tpu_torch.solver import graph
 
     P = 6 * noisy.Ps.shape[0]
     elem = noisy.Ps.element_size()
     regime = "registers" if _build.load().gj_solve_work_elems(P, elem) == 0 else "blocked"
     if memory:
         torch.cuda.reset_peak_memory_stats()
+    stats0 = dict(graph.STATS)
     linsolve.gj_solve.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, st = global_ba.solve(noisy, **kw)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    first = time.perf_counter() - t0
     launches = linsolve.gj_solve.launches
+    g = {k: graph.STATS[k] - stats0.get(k, 0) for k in (
+        "keys", "captures", "capture_s", "pool_bytes", "replays", "reads", "attempts",
+        "global_ba_graphed")}
     peak = torch.cuda.max_memory_allocated() if memory else None
+    stats1 = dict(graph.STATS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out2, _ = global_ba.solve(noisy, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reads = graph.STATS["reads"] - stats1.get("reads", 0)
+    replays = graph.STATS["replays"] - stats1.get("replays", 0)
+    # index_add_'s atomics sum in the order the threads arrive: two solves
+    # of one key may differ in their last bits, and an LM decision after
+    # them may follow
+    dp_replays = float((out2.Ps - out.Ps).abs().max())
 
+    if memory:
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, st_ref = global_ba.solve_eager(noisy, **kw)
+    torch.cuda.synchronize()
+    wall_eager = time.perf_counter() - t0
+    peak_eager = torch.cuda.max_memory_allocated() if memory else None
     with stage_timers((global_ba, "_assemble_terms"), (global_ba, "reduce_camera_system"),
                       (linsolve, "spd_solve")) as logs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        global_ba.solve(noisy, **kw)
+        global_ba.solve_eager(noisy, **kw)
         torch.cuda.synchronize()
         wall_i = 1e3 * (time.perf_counter() - t0)
     n_att = len(logs["spd_solve"])
@@ -1280,60 +1349,94 @@ def global_ba_run(label: str, gt, noisy, kw: dict, tag: str, memory: bool = Fals
     chi2, chi2_0 = float(st["chi2"]), float(st["chi2_init"])
     err = float(torch.linalg.norm(out.Ps - gt.Ps, dim=1).max())
     err0 = float(torch.linalg.norm(noisy.Ps - gt.Ps, dim=1).max())
+    dp = float((out.Ps - ref.Ps).abs().max())
     O = int(noisy.valid.sum())
     print(f"{label}: P={P} ({regime}), {O} observations, {st['iterations']} iterations, "
           f"chi2 {chi2:.6e} of {chi2_0:.6e}, max pose error {err:.3e} m (start {err0:.3e} m), "
-          f"wall {wall:.3f} s, gj_solve launches {launches} {tag}")
-    print(f"{label} per λ-attempt ({n_att} attempts, synchronised): assembly {asm:.3f} ms, "
-          f"Schur product {schur:.3f} ms, gj_solve {solve:.3f} ms, rest {rest:.3f} ms; "
-          f"wall {wall_i / 1e3:.3f} s {tag}")
+          f"gj_solve launches {launches} (graph replays) {tag}")
+    print(f"{label} graphed: first call {first:.3f} s ({g['keys']} key, {g['captures']} graphs "
+          f"captured in {g['capture_s']:.3f} s, pool {g['pool_bytes'] / 2**20:.1f} MiB), then "
+          f"wall {1e3 * wall:.3f} ms a solve with {replays} replays and {reads} reads "
+          f"(K={graph.CHUNK}); eager twin wall {1e3 * wall_eager:.3f} ms "
+          f"({st_ref['iterations']} iterations, {st_ref['reads']} reads) {tag}")
+    print(f"{label} graphed against eager: iterations {st['iterations']} / "
+          f"{st_ref['iterations']}, max |dp| {dp:.3e} m (two graphed solves: {dp_replays:.3e} "
+          f"m) {tag}")
+    print(f"{label} per λ-attempt of the eager twin ({n_att} attempts, synchronised): "
+          f"assembly {asm:.3f} ms, Schur product {schur:.3f} ms, gj_solve {solve:.3f} ms, "
+          f"rest {rest:.3f} ms; wall {wall_i / 1e3:.3f} s {tag}")
     if peak is not None:
-        print(f"{label} peak device memory {peak / 2**30:.3f} GiB {tag}")
-    if not (launches > 0 and launches == st["iterations"]):
-        raise AssertionError(f"{label}: {launches} launches for {st['iterations']} attempts")
-    if not (np.isfinite(chi2) and bool(torch.isfinite(out.Ps).all())):
-        raise AssertionError(f"{label}: not finite")
-    if out.Ps.device.type != "cuda":
-        raise AssertionError(f"{label} ran on {out.Ps.device}")
-    return dict(out=out, launches=launches, chi2=chi2, chi2_0=chi2_0, err=err, err0=err0, P=P,
-                regime=regime, wall=wall, attempt_ms=dict(assembly=asm, schur=schur,
-                                                          solve=solve, rest=rest))
+        print(f"{label} peak device memory {peak / 2**30:.3f} GiB graphed (first call), "
+              f"{peak_eager / 2**30:.3f} GiB eager {tag}")
+    if g["global_ba_graphed"] != 1 or not (g["replays"] > 0 and g["captures"] >= 3):
+        raise AssertionError(f"{label}: the solve did not run from captured graphs: {g}")
+    # one gj_solve an attempt: every launch is a replayed attempt's, and at
+    # K = 1 every attempt replayed is one the loop counts
+    if not (launches > 0 and launches == g["attempts"]
+            and (graph.CHUNK > 1 or launches == st["iterations"])):
+        raise AssertionError(f"{label}: {launches} launches for {g['attempts']} attempts "
+                             f"replayed, {st['iterations']} iterations")
+    if reads != -(-st["iterations"] // graph.CHUNK):
+        raise AssertionError(f"{label}: {reads} reads for {st['iterations']} attempts")
+    if st.keys() != st_ref.keys() or not isinstance(st["chi2"], torch.Tensor):
+        raise AssertionError(f"{label}: graphed stats {sorted(st)}, eager {sorted(st_ref)}")
+    for name, o, s in (("graphed", out, st), ("eager", ref, st_ref)):
+        if not (np.isfinite(float(s["chi2"])) and bool(torch.isfinite(o.Ps).all())):
+            raise AssertionError(f"{label} {name}: not finite")
+        if o.Ps.device.type != "cuda":
+            raise AssertionError(f"{label} {name} ran on {o.Ps.device}")
+        ok(o, s, name)
+    return dict(out=out, launches=launches, regime=regime, dp=dp,
+                iterations=st["iterations"], iterations_eager=st_ref["iterations"])
 
 
-def global_ba_one_card(tag: str) -> dict:
-    """Phase 11.  Returns the launches by type."""
+def global_ba_one_card(tag: str) -> tuple[dict, dict]:
+    """Phase 11.  Returns the launches by type and the float64 run."""
     from vio_tpu_torch import testing
     from vio_tpu_torch.device import move
     from vio_tpu_torch.parallel import global_ba
 
-    launches = {}
+    launches, runs = {}, {}
     for dtype, kw, pose_tol in (
             (torch.float32, dict(max_iter=10, fix_frames=2, loss_delta=50.0), GLOBAL_F32_POSE_TOL),
             (torch.float64, dict(max_iter=25, fix_frames=2, loss_delta=50.0), 1e-4)):
         gt, _ = testing.make_global_problem(**GLOBAL_BENCH, dtype=dtype)
         noisy = testing.perturb_global(gt, **GLOBAL_PERTURB)
         label = f"global BA 100 kf {str(dtype)[6:]}"
-        r = global_ba_run(label, gt, noisy, dict(kw, dtype=dtype), tag)
-        if dtype == torch.float32:
-            # the float32 chi² reads 0 near the solution (docstring, phase
-            # 11): the result's chi² in float64 is the one that is held
-            def chi2_64(p):
-                return float(global_ba.assemble(move(p, p.Ps.device, torch.float64),
-                                                GLOBAL_BENCH["N"], GLOBAL_BENCH["M"],
-                                                kw["fix_frames"], kw["loss_delta"]).chi2)
-            c, c0 = chi2_64(r["out"]), chi2_64(noisy)
-            print(f"{label}: the result's chi2 in float64 {c:.6e} of {c0:.6e} "
-                  f"(ratio {c / c0:.3e}, bound {GLOBAL_F32_CHI2_64:g}) {tag}")
-            ok = c <= GLOBAL_F32_CHI2_64 * c0
-        else:
-            ok = r["chi2"] < 1e-8 * r["chi2_0"]
-        if not (ok and r["err"] < pose_tol):
-            raise AssertionError(f"{label}: chi2 {r['chi2']} of {r['chi2_0']}, "
-                                 f"pose error {r['err']} m (bound {pose_tol})")
+
+        # the float32 chi² reads 0 near the solution (docstring, phase 11):
+        # the result's chi² in float64 is the one that is held
+        def chi2_64(p):
+            return float(global_ba.assemble(move(p, p.Ps.device, torch.float64),
+                                            GLOBAL_BENCH["N"], GLOBAL_BENCH["M"],
+                                            kw["fix_frames"], kw["loss_delta"]).chi2)
+
+        def ok(out, st, name):
+            err = float(torch.linalg.norm(out.Ps - gt.Ps, dim=1).max())
+            if dtype == torch.float32:
+                c, c0 = chi2_64(out), chi2_64(noisy)
+                print(f"{label} {name}: the result's chi2 in float64 {c:.6e} of {c0:.6e} "
+                      f"(ratio {c / c0:.3e}, bound {GLOBAL_F32_CHI2_64:g}), max pose error "
+                      f"{err:.3e} m {tag}")
+                held = c <= GLOBAL_F32_CHI2_64 * c0
+            else:
+                held = float(st["chi2"]) < 1e-8 * float(st["chi2_init"])
+            if not (held and err < pose_tol):
+                raise AssertionError(f"{label} {name}: chi2 {float(st['chi2'])} of "
+                                     f"{float(st['chi2_init'])}, pose error {err} m "
+                                     f"(bound {pose_tol})")
+
+        r = global_ba_run(label, gt, noisy, dict(kw, dtype=dtype), tag, ok)
+        if dtype == torch.float64 and not (r["iterations"] == r["iterations_eager"]
+                                           and r["dp"] <= GLOBAL_TWIN_DP64):
+            raise AssertionError(f"{label}: graphed {r['iterations']} iterations against eager "
+                                 f"{r['iterations_eager']}, max |dp| {r['dp']:.3e} m "
+                                 f"(bound {GLOBAL_TWIN_DP64})")
         if r["regime"] != "blocked":
             raise AssertionError("global BA: P=600 did not take the blocked regime")
         launches[dtype] = r["launches"]
-    return launches
+        runs[dtype] = dict(r, gt=gt, noisy=noisy, kw=kw)
+    return launches, runs[torch.float64]
 
 
 def global_ba_scaling_size(tag: str) -> int:
@@ -1345,12 +1448,124 @@ def global_ba_scaling_size(tag: str) -> int:
     noisy = testing.perturb_global(gt, **GLOBAL_PERTURB)
     torch.cuda.synchronize()
     print(f"global BA 64 kf 1M obs: problem built in {time.perf_counter() - t0:.2f} s (host numpy) {tag}")
+    err0 = float(torch.linalg.norm(noisy.Ps - gt.Ps, dim=1).max())
+
+    def ok(out, st, name):
+        err = float(torch.linalg.norm(out.Ps - gt.Ps, dim=1).max())
+        if not (float(st["chi2"]) < float(st["chi2_init"]) and err < err0):
+            raise AssertionError(f"global BA at 1M observations {name}: chi2 "
+                                 f"{float(st['chi2'])} of {float(st['chi2_init'])}, pose error "
+                                 f"{err} from {err0} m")
+
     r = global_ba_run("global BA 64 kf 1M obs float32", gt, noisy,
-                      dict(max_iter=8, fix_frames=2), tag, memory=True)
-    if not (r["chi2"] < r["chi2_0"] and r["err"] < r["err0"]):
-        raise AssertionError(f"global BA at 1M observations: chi2 {r['chi2']} of {r['chi2_0']}, "
-                             f"pose error {r['err']} from {r['err0']} m")
+                      dict(max_iter=8, fix_frames=2), tag, ok, memory=True)
     return r["launches"]
+
+
+def spd_system(P: int, cond: float, seed: int):
+    """Phase 24's SPD system in float64 on the host: eigenvalues log-spaced
+    over ``cond`` in a seeded orthogonal basis, rows and columns scaled by
+    a seeded diagonal in [0.5, 2] (so the Jacobi preconditioner has work),
+    and a seeded right-hand side."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((P, P)))
+    D = np.diag(rng.uniform(0.5, 2.0, P))
+    H = D @ (Q * np.logspace(0, np.log10(cond), P)) @ Q.T @ D
+    return 0.5 * (H + H.T), rng.standard_normal(P)
+
+
+def pcg_on_card(tag: str, direct64: dict) -> None:
+    """Phase 24: Jacobi-PCG on the card, graphed (``pcg.pcg_solve``)
+    against its eager twin (``pcg.pcg_solve_eager``) at P = 600 and 1200 in
+    both types; ``global_ba.solve(use_pcg=True)`` at phase 11's float64
+    problem; ``global_ba.solve`` at 200 keyframes (P = 1200, PCG through
+    ``spd_solve``)."""
+    from vio_tpu_torch import testing
+    from vio_tpu_torch.parallel import global_ba
+    from vio_tpu_torch.solver import graph, pcg
+
+    for P in PCG_SIZES:
+        Hn, bn = spd_system(P, PCG_COND, seed=P)
+        kappa = float(np.linalg.cond(Hn))
+        for dtype in (torch.float32, torch.float64):
+            rtol = PCG_RTOL[dtype]
+            H = torch.as_tensor(Hn, dtype=dtype, device="cuda")
+            b = torch.as_tensor(bn, dtype=dtype, device="cuda")
+            s0 = dict(graph.STATS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, k = pcg.pcg_solve(H, b, rtol=rtol)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            ms = cuda_ms(lambda: pcg.pcg_solve(H, b, rtol=rtol), reps=5, warmup=0)
+            reads = (graph.STATS["reads"] - s0.get("reads", 0)) / 6
+            ms_eager = cuda_ms(lambda: pcg.pcg_solve_eager(H, b, rtol=rtol), reps=3, warmup=1)
+            x_ref, k_ref = pcg.pcg_solve_eager(H, b, rtol=rtol)
+            nb = float(np.linalg.norm(bn))
+            res = [float(np.linalg.norm(Hn @ v.double().cpu().numpy() - bn)) / nb
+                   for v in (x, x_ref)]
+            dx = float((x - x_ref).abs().max())
+            name = f"pcg {str(dtype)[6:]} P={P}"
+            line = (f"{name}: {k} iterations graphed, {k_ref} eager; relative residual "
+                    f"{res[0]:.3e} / {res[1]:.3e} (rtol {rtol:g}); max |x - x_eager| {dx:.3e}; "
+                    f"graphed {ms:.3f} ms a solve ({reads:.1f} reads, K={pcg.CHUNK}; first "
+                    f"call {first:.3f} s with its capture), eager {ms_eager:.3f} ms")
+            if dtype == torch.float64:
+                x_dir = np.linalg.solve(Hn, bn)
+                fwd = float(np.linalg.norm(x.cpu().numpy() - x_dir) / np.linalg.norm(x_dir))
+                line += f"; against the direct solve {fwd:.3e} (bound κ·rtol {kappa * rtol:.3e})"
+                if not fwd <= kappa * rtol:
+                    raise AssertionError(f"{name}: {fwd:.3e} from the direct solve")
+            print(f"{line} {tag}")
+            if not (k == k_ref and max(res) <= rtol and 0 < k < 2 * P and x.is_cuda):
+                raise AssertionError(f"{name}: iterations {k} / {k_ref}, residuals {res}")
+
+    # global BA with use_pcg=True at phase 11's float64 problem
+    gt, noisy, kw = direct64["gt"], direct64["noisy"], direct64["kw"]
+    s0 = dict(graph.STATS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, st = global_ba.solve(noisy, use_pcg=True, dtype=torch.float64, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = {k: graph.STATS[k] - s0.get(k, 0) for k in ("pcg_solves", "pcg_iterations", "reads",
+                                                     "global_ba_eager")}
+    err = float(torch.linalg.norm(out.Ps - gt.Ps, dim=1).max())
+    dp = float((out.Ps - direct64["out"].Ps).abs().max())
+    chi2, chi2_0 = float(st["chi2"]), float(st["chi2_init"])
+    print(f"global BA 100 kf float64 use_pcg=True: {st['iterations']} iterations, chi2 "
+          f"{chi2:.6e} of {chi2_0:.6e}, max pose error {err:.3e} m, max |dp| against phase "
+          f"11's direct graphed solve {dp:.3e} m; wall {wall:.3f} s, {d['pcg_solves']} PCG "
+          f"solves, {d['pcg_iterations'] / max(d['pcg_solves'], 1):.1f} CG iterations and "
+          f"{d['reads'] / max(d['pcg_solves'], 1):.1f} reads an attempt {tag}")
+    if not (d["global_ba_eager"] == 1 and d["pcg_solves"] == st["iterations"]
+            and chi2 < 1e-8 * chi2_0 and err < 1e-4):
+        raise AssertionError(f"global BA use_pcg=True: {d}, chi2 {chi2} of {chi2_0}, "
+                             f"pose error {err} m")
+
+    # 200 keyframes: P = 1200 > gj_solve's 1024, so spd_solve takes PCG
+    gt, _ = testing.make_global_problem(**GLOBAL_PCG, dtype=torch.float64)
+    noisy = testing.perturb_global(gt, **GLOBAL_PERTURB)
+    err0 = float(torch.linalg.norm(noisy.Ps - gt.Ps, dim=1).max())
+    s0 = dict(graph.STATS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, st = global_ba.solve(noisy, dtype=torch.float64, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = {k: graph.STATS[k] - s0.get(k, 0) for k in ("pcg_solves", "pcg_iterations", "reads",
+                                                     "global_ba_eager", "capture_s")}
+    err = float(torch.linalg.norm(out.Ps - gt.Ps, dim=1).max())
+    chi2, chi2_0 = float(st["chi2"]), float(st["chi2_init"])
+    print(f"global BA 200 kf float64 (P=1200, PCG through spd_solve): {st['iterations']} "
+          f"iterations, chi2 {chi2:.6e} of {chi2_0:.6e}, max pose error {err:.3e} m (start "
+          f"{err0:.3e} m); wall {wall:.3f} s ({d['capture_s']:.3f} s capturing), "
+          f"{d['pcg_iterations'] / max(d['pcg_solves'], 1):.1f} CG iterations and "
+          f"{d['reads'] / max(d['pcg_solves'], 1):.1f} reads an attempt {tag}")
+    if not (d["global_ba_eager"] == 1 and d["pcg_solves"] == st["iterations"] > 0
+            and chi2 < chi2_0 and err < err0):
+        raise AssertionError(f"global BA 200 kf: {d}, chi2 {chi2} of {chi2_0}, pose error "
+                             f"{err} from {err0} m")
 
 
 def _free_port() -> int:
@@ -2457,9 +2672,17 @@ def main() -> int:
     by_path = {"run_sim float32": launches, "run_images float64": sync["launches"],
                "run_images_async float64": async_launches,
                "run_sim + LoopCloser float64": loop_launches}
-    for dtype, n in global_ba_one_card(tag).items():
-        by_path[f"global_ba.solve 100 kf P=600 {str(dtype)[6:]}"] = n
-    by_path["global_ba.solve 64 kf 1M obs P=384 float32"] = global_ba_scaling_size(tag)
+    gba_launches, gba64 = global_ba_one_card(tag)
+    for dtype, n in gba_launches.items():
+        by_path[f"global_ba.solve 100 kf P=600 {str(dtype)[6:]}, graph replays"] = n
+    by_path["global_ba.solve 64 kf 1M obs P=384 float32, graph replays"] = \
+        global_ba_scaling_size(tag)
+    graph.clear()                  # the keys' pools (phase 12's most of all)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    pcg_on_card(tag, gba64)
+    print(f"chip_smoke: phase 24 (PCG on the card) took {time.perf_counter() - t_phase:.1f} s "
+          f"{tag}")
     by_path.update(distributed_paths(tag))
     by_path.update(bal_paths(est.device, tag))
     by_path["direct_ba float32"] = direct_paths(est.device, tag)

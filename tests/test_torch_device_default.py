@@ -22,7 +22,7 @@ from vio_tpu_torch.loop import posegraph, vocab
 from vio_tpu_torch.loop.closer import LoopCloser
 from vio_tpu_torch.ops import ransac
 from vio_tpu_torch.parallel import global_ba, sharded
-from vio_tpu_torch.solver import bal, frame_step, marginalize
+from vio_tpu_torch.solver import bal, frame_step, graph, marginalize, pcg
 
 torch.set_num_threads(1)
 
@@ -159,11 +159,12 @@ def test_inner_functions_keep_no_device_default(fn):
     stereo.disparity_from_flow, stereo.disparity_to_pointcloud,
     stereo.points_to_pointcloud, stereo.pearson, icp.umeyama, icp.icp_gn,
     marginalize.marginalize_old, marginalize.marginalize_new,
-    marginalize.marginalize_old_host],
+    marginalize.marginalize_old_host, global_ba.solve_graphed, pcg.pcg_solve_graphed,
+    pcg.pcg_solve, pcg.pcg_solve_eager],
     ids=lambda f: f.__qualname__)
 def test_frontend_functions_take_the_device_from_their_inputs(fn):
-    """No frontend function below the entry points has a device or dtype
-    to default: it works where its tensors are.  The two helpers that make
+    """No frontend or solver function below the entry points has a device
+    or dtype to default: it works where its tensors are.  The two helpers that make
     a tensor from nothing are told both, with no default."""
     params = inspect.signature(fn).parameters
     for name in ("device", "dtype"):
@@ -177,7 +178,8 @@ def test_frontend_functions_take_the_device_from_their_inputs(fn):
                                    runner.run_sim, runner.run_euroc, Estimator.__init__,
                                    intrinsics.calibrate_chessboard,
                                    LoopCloser.__init__, LoopCloser.load, checkpoint.load,
-                                   global_ba.solve, global_ba.solve_sharded,
+                                   global_ba.solve, global_ba.solve_eager,
+                                   global_ba.solve_sharded,
                                    sharded.solve_window_sharded, sharded.training_step,
                                    bal.solve, bal.load_bal, direct.direct_ba,
                                    direct.direct_pose_estimation,
@@ -203,7 +205,8 @@ def test_scale_out_entry_points_raise_without_a_card(no_card, tmp_path):
                                                imu_per_interval=2, **cpu)
     calls = [lambda: testing.make_global_problem(N=8, M=16, obs_per_lm=2),
              lambda: testing.make_window_problem(window_size=2, max_features=8),
-             lambda: global_ba.solve(p), lambda: global_ba.solve_sharded(p),
+             lambda: global_ba.solve(p), lambda: global_ba.solve_eager(p),
+             lambda: global_ba.solve_sharded(p),
              lambda: sharded.solve_window_sharded(states, f),
              lambda: sharded.training_step(states, f),
              lambda: bal.load_bal(str(tmp_path / "absent.txt")),

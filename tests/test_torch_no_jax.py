@@ -37,6 +37,7 @@ MODULES = [
     "vio_tpu_torch.solver.blockba", "vio_tpu_torch.solver.bal",
     "vio_tpu_torch.features.direct", "vio_tpu_torch.parallel",
     "vio_tpu_torch.parallel.global_ba", "vio_tpu_torch.parallel.sharded",
+    "vio_tpu_torch.parallel.collective", "vio_tpu_torch.utils.tree",
     "vio_tpu_torch.io", "vio_tpu_torch.features.stereo", "vio_tpu_torch.init.icp",
     "vio_tpu_torch.calib", "vio_tpu_torch.calib.allan",
     "vio_tpu_torch.calib.intrinsics", "vio_tpu_torch.hybrid", "vio_tpu_torch.viz",

@@ -290,19 +290,28 @@ def global_solve(p, device=None, dtype=None):
 
 
 def bench_global_ba(n: int = 3, device=None, dtype=None) -> dict:
-    """The 100-keyframe global BA (P = 600, gj_solve's blocked regime)."""
+    """The 100-keyframe global BA (P = 600, gj_solve's blocked regime).
+    On the card ``global_ba.solve`` replays its key's captured graphs; the
+    key's capture falls in ``wall_ms``'s warm call and is recorded apart
+    (keys, seconds capturing with the thread's warm-up but not the
+    kernels' build, pool bytes), then one more solve counts the replays,
+    reads and attempts."""
     device, dtype = resolve(device, dtype)
     noisy = global_problem(device, dtype)
 
     def step():
         return global_solve(noisy, device, dtype)
 
+    stats0 = dict(graph.STATS)
     wall = wall_ms(step, n, device)
+    captured = {f"graph_{k}": graph.STATS[k] - stats0.get(k, 0)
+                for k in ("keys", "capture_s", "pool_bytes")}
     dev = device_ms(step, n, device)
-    before = linsolve.gj_solve.launches
+    before, stats1 = linsolve.gj_solve.launches, dict(graph.STATS)
     _, stats = step()
     return dict(wall_ms=wall, device_ms=dev, iterations=int(stats["iterations"]),
-                gj_solve_launches_per_solve=linsolve.gj_solve.launches - before)
+                gj_solve_launches_per_solve=linsolve.gj_solve.launches - before,
+                **captured, **graph_counts(stats1))
 
 
 def _sim_features(data, k: int) -> dict:
@@ -528,7 +537,8 @@ def main(device=None, details_path: str = DETAILS) -> int:
         r = bench_global_ba(device=device, dtype=dtype)
         return dict(device_ms_10iter=r["device_ms"], wall_ms_per_call=r["wall_ms"],
                     keyframes=GLOBAL["N"], lm_iterations=r["iterations"],
-                    gj_solve_launches_per_solve=r["gj_solve_launches_per_solve"])
+                    gj_solve_launches_per_solve=r["gj_solve_launches_per_solve"],
+                    **{k: r[k] for k in r if k.startswith("graph_")})
     stage("global_ba_100kf", 35, _gba)
 
     # bench.py's adaptive depth: a short budget shrinks the run instead of

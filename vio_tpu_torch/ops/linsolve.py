@@ -29,6 +29,7 @@ from . import _build
 # kRegMaxP), and its panel width above that (kNB).
 REGISTER_MAX_P = {torch.float32: 176, torch.float64: 127}
 PANEL = 32
+MAX_P = 1024     # the kernel's largest system; spd_solve sends larger ones to PCG
 
 
 def _eliminate(S: torch.Tensor) -> None:
@@ -87,7 +88,7 @@ def gj_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if A.dtype != b.dtype or A.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"gj_solve takes float32 or float64, got {A.dtype}/{b.dtype}")
     P = A.shape[0]
-    if A.shape != (P, P) or b.shape != (P,) or not 1 <= P <= 1024:
+    if A.shape != (P, P) or b.shape != (P,) or not 1 <= P <= MAX_P:
         raise ValueError(f"gj_solve shapes: A {tuple(A.shape)}, b {tuple(b.shape)}")
     A = A.contiguous()
     b = b.contiguous()
@@ -122,9 +123,9 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     version on a CPU tensor — the unblocked one at every size and type, so
     that a CPU result does not depend on where the card's kernel changes
     regime.  Larger systems go to Jacobi-PCG (solver/pcg.py), as in the
-    JAX package."""
+    JAX package (on a CUDA tensor from its captured graphs)."""
     P = A.shape[0]
-    if P > 1024:
+    if P > MAX_P:
         from ..solver.pcg import pcg_solve
         x, _ = pcg_solve(A, b)
         return x

@@ -28,8 +28,16 @@ Structure:
   packed reduced system, in float64 on the wire; the damped solve is
   replicated on every rank.
 
-The JAX ``lax.while_loop``/``lax.cond`` LM is a Python loop here with one
-host read per λ-attempt, as in ``solver/lm.py``.
+The JAX ``lax.while_loop`` body (``vio_tpu/parallel/global_ba.py:226-247``)
+is ``_attempt``: one λ-attempt as a transition of the device-resident
+``LMState``, its ``lax.cond`` accept/reject turned into ``torch.where``
+selects on every leaf and every update gated by the loop's condition, so
+an attempt made after the loop has ended changes no bit (as
+``solver/lm.py``'s).  The one attempt serves every loop: ``solve`` on the
+card replays it from captured CUDA graphs (``solve_graphed``, on
+``solver/graph.py``'s ``LoopGraph``), and the eager loop (``solve_eager``,
+``solve_sharded``, the CPU) runs it with one host read of the loop's
+condition after each attempt.
 
 Reference lineage for the math: reprojection factor edge_reprojection.cc,
 Schur solve problem.cc:409-446 — re-derived at scale.
@@ -45,8 +53,10 @@ import torch.distributed as dist
 from .. import factors
 from ..device import move, resolve
 from ..ops import linsolve
-from ..solver import pcg
+from ..solver import graph, pcg
 from ..utils import lie
+from ..utils.tree import select
+from .collective import _psum_hi, all_reduce_system
 
 
 class GlobalBA(NamedTuple):
@@ -77,9 +87,11 @@ class GlobalNormal(NamedTuple):
 
 
 def _fixed_diag(N: int, fix_frames: int, like: torch.Tensor):
-    """(6N,) unit diagonal on the fixed poses: keeps the reduced system SPD."""
+    """(6N,) unit diagonal on the fixed poses: keeps the reduced system SPD.
+    (An expand, not ``repeat_interleave``, which may read its output size
+    back to the host.)"""
     fixed = (torch.arange(N, device=like.device) < fix_frames).to(like.dtype)
-    return fixed.repeat_interleave(6)
+    return fixed[:, None].expand(N, 6).reshape(6 * N)
 
 
 def _assemble_terms(p: GlobalBA, N: int, M: int, fix_frames: int,
@@ -212,85 +224,244 @@ def apply_delta(p: GlobalBA, dxp, dxm, fix_frames: int = 1) -> GlobalBA:
     return p._replace(Ps=p.Ps + d[:, 0:3], Qs=Qs, inv_dep=inv_dep)
 
 
-class _Nielsen:
-    """The LM step-size rule of the JAX loop (Nielsen): λ and ν are
-    tensors in the solve dtype; ``step`` reads the accept and stop
-    decisions on the host, one sync per attempt."""
+class LMState(NamedTuple):
+    """The λ-loop's carry (``vio_tpu/parallel/global_ba.py:249``), all on
+    the device: the current poses and inverse depths, their normal
+    equations and reduced system, the damping and the Nielsen counters as
+    0-d tensors."""
+    Ps: torch.Tensor
+    Qs: torch.Tensor
+    inv_dep: torch.Tensor
+    normal: GlobalNormal
+    S: torch.Tensor          # (6N, 6N) reduced system, with the gauge diagonal
+    rhs: torch.Tensor        # (6N,)
+    Hmm_inv: torch.Tensor    # (M,)
+    lam: torch.Tensor
+    ni: torch.Tensor
+    chi: torch.Tensor
+    it: torch.Tensor         # int64: the attempts made, as vio_tpu counts them
+    stop: torch.Tensor       # bool
 
-    def __init__(self, lam):
-        self.lam = lam
-        self.ni = torch.full_like(lam, 2.0)
 
-    def step(self, chi, chi_cand, scale):
-        rho = (chi - chi_cand) / scale
-        good, stop_acc, stop_rej = torch.stack([
-            (rho > 0) & torch.isfinite(chi_cand),
-            (chi - chi_cand) < 1e-10 * torch.clamp(chi, min=1.0),
-            self.lam * self.ni > 1e16]).tolist()
-        if good:
-            alpha = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, max=2.0 / 3.0)
-            self.lam = self.lam * torch.clamp(alpha, min=1.0 / 3.0)
-            self.ni = torch.full_like(self.ni, 2.0)
-            return True, stop_acc
-        self.lam = self.lam * self.ni
-        self.ni = self.ni * 2.0
-        return False, stop_rej
+class Problem(NamedTuple):
+    """What every attempt of one solve reads and never changes."""
+    p: GlobalBA              # the tables; its Ps, Qs, inv_dep are the start's
+    fixed_diag: torch.Tensor
+    max_iter: int
+    fix_frames: int
+    loss_delta: float
+    use_pcg: bool
+    ofs: int = 0             # this rank's first landmark
+    group: object = None     # torch.distributed group, or None
+    wire: list | None = None  # bytes of each all_reduce, appended
+
+
+def _assemble(q: Problem, Ps, Qs, inv_dep) -> GlobalNormal:
+    p = q.p
+    return _assemble_terms(p._replace(Ps=Ps, Qs=Qs, inv_dep=inv_dep), p.Ps.shape[0],
+                           p.inv_dep.shape[0], q.fix_frames, q.loss_delta, q.ofs)
+
+
+def _reduced(q: Problem, norm: GlobalNormal, extra):
+    """The reduced system with the gauge diagonal, summed with chi² and
+    ``extra`` over the group (``all_reduce_system``)."""
+    S, rhs, Hmm_inv = reduce_camera_system(norm, q.p.lm_valid)
+    S, rhs, chi, extra = all_reduce_system(S, rhs, norm.chi2, extra, q.group, q.wire)
+    return S + torch.diag(q.fixed_diag), rhs, chi, extra, Hmm_inv
+
+
+def start(p: GlobalBA, max_iter: int, fix_frames: int, loss_delta: float,
+          use_pcg: bool = False, group=None, wire=None):
+    """The first assembly and λ0 over p (the whole problem when ``group``
+    is None, else this rank's ``prepare_sharded`` part): returns
+    (LMState, Problem, chi2_init)."""
+    ofs = 0 if group is None else dist.get_rank(group) * p.inv_dep.shape[0]
+    q = Problem(p, _fixed_diag(p.Ps.shape[0], fix_frames, p.Ps), max_iter, fix_frames,
+                loss_delta, use_pcg, ofs, group, [] if wire is None else wire)
+    norm = _assemble(q, p.Ps, p.Qs, p.inv_dep)
+    # λ0 = 1e-5 · min(max |diag|, 5e10) over the summed pre-Schur Hpp (with
+    # the unit gauge diagonal) and the landmark diagonal
+    S, rhs, chi, diag_pre, Hmm_inv = _reduced(q, norm, torch.diagonal(norm.Hpp))
+    hmm_max = _psum_hi(torch.max(torch.abs(norm.Hmm)), group, dist.ReduceOp.MAX)
+    max_diag = torch.maximum(torch.max(torch.abs(diag_pre + q.fixed_diag)), hmm_max)
+    lam = 1e-5 * torch.clamp(max_diag, max=5e10)
+    s = LMState(Ps=p.Ps, Qs=p.Qs, inv_dep=p.inv_dep, normal=norm, S=S, rhs=rhs,
+                Hmm_inv=Hmm_inv, lam=lam, ni=torch.full_like(lam, 2.0), chi=chi,
+                it=torch.zeros((), dtype=torch.int64, device=chi.device),
+                stop=torch.zeros((), dtype=torch.bool, device=chi.device))
+    return s, q, chi
+
+
+def live(s: LMState, max_iter: int):
+    """The loop's condition (``vio_tpu/parallel/global_ba.py:222``), a 0-d
+    bool."""
+    return ~s.stop & (s.it < max_iter)
+
+
+def _attempt(s: LMState, q: Problem) -> LMState:
+    """One λ-attempt (the JAX loop's ``body``, ``vio_tpu/parallel/
+    global_ba.py:226-247``) with no host read: accept and reject are both
+    computed and selected leaf by leaf, and both are masked by ``live``,
+    so an attempt after the loop has ended returns ``s`` bit for bit.  A
+    rejected candidate's chi², ρ and α may be non-finite; the selects keep
+    the old leaves then.  Under a group every decision reads summed values
+    or the replicated solve, so every rank takes the same branch."""
+    go = live(s, q.max_iter)
+    dxp, dxm = _solve_reduced(s.normal, s.S, s.rhs, s.Hmm_inv, s.lam, q.use_pcg)
+    cand = apply_delta(q.p._replace(Ps=s.Ps, Qs=s.Qs, inv_dep=s.inv_dep), dxp, dxm,
+                       q.fix_frames)
+    norm_c = _assemble(q, cand.Ps, cand.Qs, cand.inv_dep)
+    # the gain ratio's dxᵀ(λdx + b) with the PRE-Schur gradient: bp is a
+    # rank's partial, so dxpᵀbp rides the reduce with the landmark terms
+    dot = torch.dot(dxp, s.normal.bp) + torch.dot(dxm, s.lam * dxm + s.normal.bm)
+    S_c, rhs_c, chi_c, dot, Hmm_inv_c = _reduced(q, norm_c, dot[None])
+    scale = 0.5 * (s.lam * torch.dot(dxp, dxp) + dot[0]) + 1e-9
+    rho = (s.chi - chi_c) / scale
+    good = (rho > 0) & torch.isfinite(chi_c)
+    acc = go & good
+    rej = go & ~good
+
+    # accept: Nielsen's λ shrink, ν = 2, the candidate becomes the state
+    alpha = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, max=2.0 / 3.0)
+    lam_acc = s.lam * torch.clamp(alpha, min=1.0 / 3.0)
+    stop_acc = (s.chi - chi_c) < 1e-10 * torch.clamp(s.chi, min=1.0)
+    # reject: λ·ν, ν·2
+    stop_rej = s.lam * s.ni > 1e16
+
+    moved = select(acc, (cand.Ps, cand.Qs, cand.inv_dep, norm_c, S_c, rhs_c, Hmm_inv_c,
+                         chi_c),
+                   (s.Ps, s.Qs, s.inv_dep, s.normal, s.S, s.rhs, s.Hmm_inv, s.chi))
+    Ps, Qs, inv_dep, normal, S, rhs, Hmm_inv, chi = moved
+    lam = torch.where(acc, lam_acc, torch.where(rej, s.lam * s.ni, s.lam))
+    ni = torch.where(acc, torch.full_like(s.ni, 2.0), torch.where(rej, s.ni * 2.0, s.ni))
+    stop = torch.where(acc, stop_acc, torch.where(rej, stop_rej, s.stop))
+    return LMState(Ps=Ps, Qs=Qs, inv_dep=inv_dep, normal=normal, S=S, rhs=rhs,
+                   Hmm_inv=Hmm_inv, lam=lam, ni=ni, chi=chi,
+                   it=s.it + go.to(s.it.dtype), stop=stop)
+
+
+def attempts(s: LMState, q: Problem, k: int) -> LMState:
+    """``k`` attempts in a row, with no host read."""
+    for _ in range(k):
+        s = _attempt(s, q)
+    return s
+
+
+def _stats(chi, chi2_init, it: int, lam, attempts: int, reads: int, wire: list) -> dict:
+    """The stats every route returns: chi2, chi2_init and lam as 0-d
+    tensors on the problem's device and in its dtype; as ints the
+    ``iterations`` (the attempts the loop counts, as ``vio_tpu`` counts
+    them), the attempts made (a graph's chunk may make more, which change
+    nothing), the host reads of the loop's condition, and the all_reduces
+    with the bytes of the last."""
+    return dict(chi2=chi, chi2_init=chi2_init, iterations=it, lam=lam, attempts=attempts,
+                reads=reads, allreduces=len(wire), allreduce_bytes=wire[-1] if wire else 0)
 
 
 def _lm(p: GlobalBA, group, max_iter: int, fix_frames: int, loss_delta: float,
         use_pcg: bool):
-    """Nielsen-LM (the JAX package's while_loop) over p: the whole problem
-    when ``group`` is None, else this rank's ``prepare_sharded`` part over
-    the ranks of ``group``.  Assembly and the landmark Schur step cover p's
-    landmarks; each assembly's reduced system, chi² and the gain ratio's
-    terms are summed over the group in ONE all_reduce
-    (``all_reduce_system``, nothing to sum without a group); the damped
-    pose solve is replicated.  Every decision reads summed values or the
-    replicated solve, so every rank takes the same branch."""
-    N = p.Ps.shape[0]
-    M = p.inv_dep.shape[0]
-    ofs = 0 if group is None else dist.get_rank(group) * M
-    fixed_diag = _fixed_diag(N, fix_frames, p.Ps)
-    wire = []
+    """The eager loop over p: one host read of the loop's condition after
+    each attempt."""
+    s, q, chi2_init = start(p, max_iter, fix_frames, loss_delta, use_pcg, group)
+    n = 0
+    while n < max_iter:
+        s = _attempt(s, q)
+        n += 1
+        if not bool(live(s, max_iter)):
+            break
+    return (p._replace(Ps=s.Ps, Qs=s.Qs, inv_dep=s.inv_dep),
+            _stats(s.chi, chi2_init, int(s.it), s.lam, n, n, q.wire))
 
-    def reduced(norm, extra):
-        S, rhs, Hmm_inv = reduce_camera_system(norm, p.lm_valid)
-        S, rhs, chi, extra = all_reduce_system(S, rhs, norm.chi2, extra, group, wire)
-        return S + torch.diag(fixed_diag), rhs, chi, extra, Hmm_inv
 
-    norm = _assemble_terms(p, N, M, fix_frames, loss_delta, ofs)
-    # λ0 = 1e-5 · min(max |diag|, 5e10) over the summed pre-Schur Hpp (with
-    # the unit gauge diagonal) and the landmark diagonal
-    S, rhs, chi, diag_pre, Hmm_inv = reduced(norm, torch.diagonal(norm.Hpp))
-    hmm_max = _psum_hi(torch.max(torch.abs(norm.Hmm)), group, dist.ReduceOp.MAX)
-    max_diag = torch.maximum(torch.max(torch.abs(diag_pre + fixed_diag)), hmm_max)
-    lm = _Nielsen(1e-5 * torch.clamp(max_diag, max=5e10))
-    chi2_init = chi
-    it, stop = 0, False
-    while not stop and it < max_iter:
-        lam = lm.lam
-        dxp, dxm = _solve_reduced(norm, S, rhs, Hmm_inv, lam, use_pcg)
-        cand = apply_delta(p, dxp, dxm, fix_frames)
-        norm_c = _assemble_terms(cand, N, M, fix_frames, loss_delta, ofs)
-        # the gain ratio's dxᵀ(λdx + b) with the PRE-Schur gradient: bp is
-        # a rank's partial, so dxpᵀbp rides the reduce with the landmark terms
-        dot_loc = torch.dot(dxp, norm.bp) + torch.dot(dxm, lam * dxm + norm.bm)
-        S_c, rhs_c, chi_c, dot_sh, Hmm_inv_c = reduced(norm_c, dot_loc[None])
-        scale = 0.5 * (lam * torch.dot(dxp, dxp) + dot_sh[0]) + 1e-9
-        good, stop = lm.step(chi, chi_c, scale)
-        if good:
-            p, norm, S, rhs, chi, Hmm_inv = cand, norm_c, S_c, rhs_c, chi_c, Hmm_inv_c
-        it += 1
-    return p, dict(chi2=chi, chi2_init=chi2_init, iterations=it, lam=lm.lam,
-                   allreduces=len(wire), allreduce_bytes=wire[-1] if wire else 0)
+def graph_fns(max_iter: int, fix_frames: int, loss_delta: float):
+    """The head, chunk and tail of a solve's ``graph.LoopGraph``
+    (``vio_tpu/parallel/global_ba.py:208-252`` under ``jax.jit``); the
+    inputs are the leaves of a ``GlobalBA``.  The damped solve is the
+    direct kernel's (``use_pcg=False``)."""
+    def head(views, k):
+        s, q, chi2_init = start(GlobalBA(*views), max_iter, fix_frames, loss_delta)
+        s = attempts(s, q, k)
+        return s, (q, chi2_init), live(s, max_iter)
+
+    def step(s, aux, k):
+        s = attempts(s, aux[0], k)
+        return s, live(s, max_iter)
+
+    def tail(s, aux):
+        return [s.it]
+
+    return head, step, tail
+
+
+def graph_key(p: GlobalBA, max_iter: int, fix_frames: int, loss_delta: float) -> tuple:
+    """What ``jax.jit`` holds static for ``vio_tpu``'s ``solve``
+    (``max_iter``, ``fix_frames``, ``loss_delta``; ``use_pcg`` is False on
+    this route) and what it traces: each leaf's shape and dtype, and the
+    device."""
+    return ("global_ba", int(max_iter), int(fix_frames), float(loss_delta),
+            tuple((tuple(t.shape), t.dtype) for t in p), p.Ps.device)
+
+
+def solve_graphed(p: GlobalBA, max_iter: int = 20, fix_frames: int = 1,
+                  loss_delta: float = 1.0):
+    """``solve`` on the card from the captured graphs of ``graph_key``: the
+    problem's device tensors in (one device-to-device copy each into the
+    key's inputs), a ``GlobalBA`` out whose poses and inverse depths are
+    fresh device tensors (the tables are p's), stats as ``solve_eager``'s.
+    Raises on a CPU problem; there is no eager fallback."""
+    graph.require_cuda(p.Ps.device, "global_ba.solve_graphed")
+    key = graph_key(p, max_iter, fix_frames, loss_delta)
+    g = graph.loop_graph(key, list(key[4]), *graph_fns(max_iter, fix_frames, loss_delta),
+                         p.Ps.device,
+                         kept=lambda s, aux: [s.Ps, s.Qs, s.inv_dep, s.chi, aux[1], s.lam])
+    g.inputs.load(list(p))
+    scalar = p.Ps.new_empty(())
+    out = [torch.empty_like(t) for t in (p.Ps, p.Qs, p.inv_dep, scalar, scalar, scalar)]
+    (it,) = g.run(keep=out)
+    Ps, Qs, inv_dep, chi, chi2_init, lam = out
+    return (p._replace(Ps=Ps, Qs=Qs, inv_dep=inv_dep),
+            _stats(chi, chi2_init, int(it), lam, g.attempts, g.reads, []))
 
 
 def solve(p: GlobalBA, max_iter: int = 20, fix_frames: int = 1,
           loss_delta: float = 1.0, use_pcg: bool = False, device=None,
           dtype=None):
-    """Nielsen-LM over the global problem.  The problem is moved to
-    ``device`` and ``dtype`` first (without them, the card in float32).
-    Returns (p, stats)."""
+    """Nielsen-LM over the global problem (``vio_tpu``'s jitted ``solve``).
+    The problem is moved to ``device`` and ``dtype`` first (without them,
+    the card in float32).  Returns (p, stats), stats as ``_stats`` says
+    whatever the route.
+
+    The route follows the static arguments, before any work, as
+    ``jax.jit`` compiles one program per ``use_pcg``; it is never chosen
+    on an error:
+    - on a CUDA device with ``use_pcg=False`` and 6N ≤ 1024 (the direct
+      kernel's range): ``solve_graphed``, the key's captured graphs
+      replayed, one host read of the loop's condition per ``graph.CHUNK``
+      attempts.  A key is captured at its first call and pays off where
+      calls repeat its shapes; a map that grows makes a key at every size
+      (``graph.POOL_BUDGET`` bounds the pools they hold);
+    - otherwise the eager loop (``solve_eager``'s): on the CPU, and on the
+      card where the damped solve is Jacobi-PCG (``use_pcg``, or 6N > 1024
+      through ``linsolve.spd_solve``), whose data-dependent loop a graph
+      of the LM cannot hold; PCG runs from its own graphs there.
+    ``graph.STATS`` counts each route (``global_ba_graphed``,
+    ``global_ba_eager``)."""
+    device, dtype = resolve(device, dtype)
+    p = move(p, device, dtype)
+    if device.type == "cuda" and not use_pcg and 6 * p.Ps.shape[0] <= linsolve.MAX_P:
+        graph.STATS["global_ba_graphed"] += 1
+        return solve_graphed(p, max_iter, fix_frames, loss_delta)
+    graph.STATS["global_ba_eager"] += 1
+    return _lm(p, None, max_iter, fix_frames, loss_delta, use_pcg)
+
+
+def solve_eager(p: GlobalBA, max_iter: int = 20, fix_frames: int = 1,
+                loss_delta: float = 1.0, use_pcg: bool = False, device=None,
+                dtype=None):
+    """``solve``'s eager loop on any device: the same attempts run op by
+    op, one host read of the loop's condition after each.  On the card it
+    is the graphs' twin, which a stage timer can time (a synchronise inside
+    a capture is an error)."""
     device, dtype = resolve(device, dtype)
     return _lm(move(p, device, dtype), None, max_iter, fix_frames, loss_delta, use_pcg)
 
@@ -379,40 +550,6 @@ def prepare_sharded(p: GlobalBA, rank: int, world: int) -> GlobalBA:
     return local_shard(align_by_landmark(p, world), rank, world)
 
 
-def _psum_hi(x, group, op=dist.ReduceOp.SUM):
-    """All-reduce over ``group`` (None: one process, x as it is) in float64
-    on the wire (the JAX package's x64 path of ``_psum_hi``): with float32
-    partials the reduction order moved the LM accept decisions at 262k
-    observations (SCALING.md, r4), so the partials are widened before they
-    meet.  Under gloo the payload is reduced through host memory: it is
-    copied to the host, reduced there and copied back, whatever device the
-    ranks use."""
-    if group is None:
-        return x
-    wire = x.to(torch.float64)
-    if dist.get_backend(group) == dist.Backend.GLOO and wire.is_cuda:
-        host = wire.cpu()
-        dist.all_reduce(host, op=op, group=group)
-        wire = host.to(x.device)
-    else:
-        dist.all_reduce(wire, op=op, group=group)
-    return wire.to(x.dtype)
-
-
-def all_reduce_system(S, rhs, chi, extra, group, wire: list):
-    """ONE all_reduce of a rank's reduced system: S (P, P), rhs (P,), chi²
-    () and ``extra`` (k,) packed into one float64 payload.  Returns their
-    sums over ``group`` (None: one process, the inputs as they are);
-    appends the payload's bytes to ``wire``."""
-    if group is None:
-        return S, rhs, chi, extra
-    P = S.shape[0]
-    packed = _psum_hi(torch.cat([S.reshape(-1), rhs, chi[None], extra]), group)
-    wire.append(8 * packed.numel())
-    return (packed[:P * P].reshape(P, P), packed[P * P:P * P + P],
-            packed[P * P + P], packed[P * P + P + 1:])
-
-
 def solve_sharded(p_loc: GlobalBA, group=None, max_iter: int = 20,
                   fix_frames: int = 1, loss_delta: float = 1.0,
                   use_pcg: bool = False, device=None, dtype=None):
@@ -426,8 +563,10 @@ def solve_sharded(p_loc: GlobalBA, group=None, max_iter: int = 20,
     local.  A rank that fails makes the others' next collective wait out
     the group's timeout (set it in ``init_process_group``).
 
-    The loop is ``solve``'s.  Returns (this rank's part of the problem,
-    stats), stats with the all_reduce count and bytes."""
+    The attempt is ``solve``'s, in the eager loop with one read of the
+    loop's condition per attempt: gloo cannot be captured into a graph.
+    Returns (this rank's part of the problem, stats), stats as ``solve``'s
+    with the all_reduce count and bytes."""
     device, dtype = resolve(device, dtype)
     return _lm(move(p_loc, device, dtype), dist.group.WORLD if group is None else group,
                max_iter, fix_frames, loss_delta, use_pcg)

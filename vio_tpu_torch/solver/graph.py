@@ -13,11 +13,23 @@ and the device):
 - the tail: from the state to the outputs, packed into one buffer.
 
 A call is then one host-to-device copy of the inputs from one pinned
-staging buffer, a replay of the head, a one-byte read of the loop's
-condition after it and after each replay of the chunk, a replay of the
-tail and one device-to-host copy of the outputs.  Attempts replayed after
-the loop has ended change no bit, so the result does not depend on
-``CHUNK``.
+staging buffer (or device-to-device copies of device tensors), a replay
+of the head, a one-byte read of the loop's condition after it and after
+each replay of the chunk, a replay of the tail and one device-to-host
+copy of the outputs; what the caller keeps on the device (global BA's
+poses) is copied out of the state into the caller's tensors.  Attempts
+replayed after the loop has ended change no bit, so the result does not
+depend on ``CHUNK``.  Each loop's head, chunk, tail, key and entry point
+sit beside the loop: the window LM's here (``solve_window``), the
+frame's in ``frame_step.py``, global BA's in ``parallel/global_ba.py``
+(``solve_graphed``) and Jacobi-PCG's in ``pcg.py`` (``pcg_solve_graphed``,
+with its own chunk ``pcg.CHUNK``).
+
+A key is captured once per process and kept while it is used: the route
+pays off where calls repeat a shape, as ``jax.jit``'s cache does.  A
+solver whose shapes change at every call (a map that grows) makes a key
+at every call, so the keys' pools together are held to ``POOL_BUDGET``:
+past it, the least recently used keys are dropped.
 
 There is no fallback: a capture or a replay that fails raises.  Capture
 runs on a stream of its own in ``thread_local`` mode, so a thread that
@@ -64,11 +76,20 @@ from . import lm
 # head).  Chosen on the card from K in {1, 2, 4, 8} (PERF.md §6).
 CHUNK = 1
 
-# Totals over the process: keys, graphs captured, seconds spent capturing
-# (the warm-ups included), the bytes the keys' memory pools hold; of the
-# LoopGraphs the replays, the attempts they made and the host reads of the
-# condition; of the ProgramGraphs the replays and the host reads of the
-# outputs (program_replays, program_reads).  ``reset_stats`` zeroes them.
+# The most device memory the cached keys' pools hold together; a capture
+# that takes them past it drops the least recently used other keys.  One
+# global-BA key at 1M observations holds ~3 GiB (PERF.md §5).
+POOL_BUDGET = 8 << 30
+
+# Totals over the process: keys cached, graphs captured, seconds spent
+# capturing (the warm-ups included, the kernels' build not), the bytes the
+# captures' memory pools took, the keys dropped to keep POOL_BUDGET
+# (evicted); of the LoopGraphs the replays, the attempts (or CG iterations)
+# they made and the host reads of the condition; of the ProgramGraphs the
+# replays and the host reads of the outputs (program_replays,
+# program_reads); global BA's routes (global_ba_graphed, global_ba_eager:
+# ``global_ba.solve``) and the graphed PCG solves with their CG iterations
+# (pcg_solves, pcg_iterations).  ``reset_stats`` zeroes them.
 STATS: Counter = Counter()
 
 # The kernel wrappers whose launches a graph holds: each counts the
@@ -92,6 +113,35 @@ def clear() -> None:
     """Drop every captured key (their memory pools go with them)."""
     with _LOCK:
         _CACHE.clear()
+        STATS["keys"] = 0
+
+
+def _cached(key, make):
+    """The cached graph of ``key``, made by ``make()`` on first use; a use
+    makes it the most recently used."""
+    with _LOCK:
+        g = _CACHE.pop(key, None)
+        if g is None:
+            g = make()
+        _CACHE[key] = g
+        STATS["keys"] = len(_CACHE)
+        return g
+
+
+def _evict(current) -> None:
+    """Drop the least recently used keys other than ``current`` while the
+    pools of the cached keys hold more than ``POOL_BUDGET`` bytes.  A
+    dropped graph that a thread still runs lives until that run ends."""
+    with _LOCK:
+        total = sum(g.pool_bytes for g in _CACHE.values())
+        for key, g in list(_CACHE.items()):
+            if total <= POOL_BUDGET:
+                break
+            if g is not current:
+                del _CACHE[key]
+                total -= g.pool_bytes
+                STATS["evicted"] += 1
+        STATS["keys"] = len(_CACHE)
 
 
 def cached_keys() -> list:
@@ -178,9 +228,10 @@ def _capture_key(device, dtypes: tuple, warm_up, body) -> int:
     eagerly on the capture stream if this thread has captured nothing on
     ``device`` in ``dtypes`` yet, then ``body(stream)``, which captures.
     Adds the seconds and the bytes the key's pool keeps to STATS and
-    returns those bytes."""
+    returns those bytes.  The kernels are built first (nvcc must never run
+    inside a capture), outside the seconds counted."""
+    _build.load()
     t0 = time.perf_counter()
-    _build.load()                     # nvcc must never run inside a capture
     stream = _capture_stream(device)
     with _CAPTURE_LOCK:
         warm_key = (threading.get_ident(), device, dtypes)
@@ -249,22 +300,26 @@ class LoopGraph:
     (carry, live), each making k λ-attempts; tail(carry, aux) -> list of
     tensors.  ``carry`` is a pytree of tensors, rewritten in place by each
     replay of the chunk; ``aux`` is what the chunk and the tail read and
-    never change."""
+    never change.  ``kept(carry, aux)`` names the tensors a call hands back
+    on the device (None: none); ``k`` is the attempts the head and the chunk
+    make.  After a call, ``attempts`` and ``reads`` are the attempts its
+    replays made and its host reads of the condition."""
 
-    def __init__(self, key, specs, head, chunk, tail, device):
-        if CHUNK < 1:
-            raise ValueError(f"graph.CHUNK must be at least 1, not {CHUNK}")
+    def __init__(self, key, specs, head, chunk, tail, device, kept, k: int):
+        if k < 1:
+            raise ValueError(f"a LoopGraph's chunk must be at least 1, not {k}")
         self.key = key
-        self.chunk = CHUNK        # the attempts the head and the chunk make
+        self.chunk = k            # the attempts the head and the chunk make
         self.device = torch.device(device)
         self.inputs = Slab(specs, self.device)
-        self._fns = (head, chunk, tail)
+        self._fns = (head, chunk, tail, kept)
         self.graphs = None
         self.launches = {}        # each COUNTED wrapper's launches a graph holds
         self.pool_bytes = 0
+        self.attempts = self.reads = 0
 
     def _capture_all(self) -> None:
-        head, chunk, tail = self._fns
+        head, chunk, tail, kept = self._fns
 
         def warm_up():
             carry, aux, _ = head(self.inputs.views, 0)
@@ -275,6 +330,7 @@ class LoopGraph:
             g_head, (carry, aux, live), self.launches["head"] = _capture(
                 lambda: head(self.inputs.views, self.chunk), stream, pool)
             self.carry, self.aux, self.live = carry, aux, live
+            self.kept = kept(carry, aux) if kept else []
 
             def do_chunk():
                 new, new_live = chunk(self.carry, self.aux, self.chunk)
@@ -292,6 +348,7 @@ class LoopGraph:
 
         self.pool_bytes = _capture_key(self.device, tuple(v.dtype for v in self.inputs.views),
                                        warm_up, body)
+        _evict(self)
 
     def _replay(self, i: int, name: str) -> None:
         self.graphs[i].replay()
@@ -299,33 +356,35 @@ class LoopGraph:
         STATS["replays"] += 1
         if name != "tail":
             STATS["attempts"] += self.chunk
+            self.attempts += self.chunk
 
     def _live(self) -> bool:
         STATS["reads"] += 1
+        self.reads += 1
         return bool(self.live)
 
-    def run(self) -> list[np.ndarray]:
+    def run(self, keep=()) -> list[np.ndarray]:
         """Replay the loop on the inputs loaded last (``inputs.upload`` or
-        ``inputs.load``); returns the tail's outputs as float64 host
-        arrays."""
+        ``inputs.load``); copies the ``kept`` tensors into ``keep`` (the
+        caller's device tensors, so the next replay cannot overwrite a
+        result) and returns the tail's outputs as float64 host arrays."""
         if self.graphs is None:
             self._capture_all()
+        self.attempts = self.reads = 0
         self._replay(0, "head")
         while self._live():
             self._replay(1, "chunk")
         self._replay(2, "tail")
+        for dst, src in zip(keep, self.kept):
+            dst.copy_(src)
         return self.out.read()
 
 
-def loop_graph(key, specs, head, chunk, tail, device) -> LoopGraph:
-    """The cached ``LoopGraph`` of ``key`` at the current ``CHUNK``, made
-    on first use."""
-    with _LOCK:
-        g = _CACHE.get((key, CHUNK))
-        if g is None:
-            g = _CACHE[(key, CHUNK)] = LoopGraph(key, specs, head, chunk, tail, device)
-            STATS["keys"] = len(_CACHE)
-        return g
+def loop_graph(key, specs, head, chunk, tail, device, kept=None, k=None) -> LoopGraph:
+    """The cached ``LoopGraph`` of ``key`` at ``k`` attempts a chunk (the
+    current ``CHUNK`` without it), made on first use."""
+    k = CHUNK if k is None else k
+    return _cached((key, k), lambda: LoopGraph(key, specs, head, chunk, tail, device, kept, k))
 
 
 class ProgramGraph:
@@ -357,6 +416,7 @@ class ProgramGraph:
 
         self.pool_bytes = _capture_key(self.device, tuple(v.dtype for v in self.inputs.views),
                                        lambda: self.fn(*self.inputs.views), body)
+        _evict(self)
 
     def run(self, host=(), device=(), keep=()) -> list[np.ndarray]:
         """One call: the inputs loaded (``host`` arrays in one upload, then
@@ -384,12 +444,7 @@ class ProgramGraph:
 
 def program_graph(key, specs, fn, device) -> ProgramGraph:
     """The cached ``ProgramGraph`` of ``key``, made on first use."""
-    with _LOCK:
-        g = _CACHE.get(key)
-        if g is None:
-            g = _CACHE[key] = ProgramGraph(key, specs, fn, device)
-            STATS["keys"] = len(_CACHE)
-        return g
+    return _cached(key, lambda: ProgramGraph(key, specs, fn, device))
 
 
 def run_eagerly(specs, fn, host=(), device=(), keep=(), on=None) -> list[np.ndarray]:
@@ -452,3 +507,10 @@ def solve_window(states, f, max_iter: int = 10, fix_ext: bool = True,
     b_prior, err_prior, chi, chi2_init, it, lam = out[n:]
     return (type(states)(*out[:n]), b_prior, err_prior,
             dict(chi2=chi, iterations=int(it), lam=lam, chi2_init=chi2_init))
+
+
+def require_cuda(device, what: str) -> None:
+    """A graphed entry point's guard: it runs on a CUDA device, never
+    eagerly elsewhere."""
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on a CUDA device, not {device}")

@@ -21,7 +21,8 @@ import torch.distributed as dist
 
 from . import window as W
 from ..ops import linsolve
-from ..parallel.global_ba import _psum_hi, all_reduce_system
+from ..parallel.collective import _psum_hi, all_reduce_system
+from ..utils.tree import select
 
 
 class LMState(NamedTuple):
@@ -118,14 +119,6 @@ def live(s: LMState, max_iter: int):
     return ~s.stop & (s.it < max_iter)
 
 
-def _select(mask, new, old):
-    """``torch.where`` over two pytrees of tensors of one structure."""
-    if isinstance(old, tuple):
-        out = [_select(mask, n, o) for n, o in zip(new, old)]
-        return type(old)(*out) if hasattr(old, "_fields") else tuple(out)
-    return torch.where(mask, new, old)
-
-
 def _attempt(s: LMState, p: Problem) -> LMState:
     """One λ-attempt (the JAX loop's ``body``, ``vio_tpu/solver/lm.py:85-128``)
     with no host read: accept and reject are both computed and selected
@@ -163,10 +156,10 @@ def _attempt(s: LMState, p: Problem) -> LMState:
     stop_rej = overflow & ((s.last_chi - s.chi) < 1e-5)
     step = acc | (rej & overflow)       # what counts as an iteration
 
-    moved = _select(acc, (cand, cand_b_prior, cand_err, normal_cand, S_c, rhs_c,
-                          Hmm_inv_c, temp_chi),
-                    (s.states, s.b_prior, s.err_prior, s.normal, s.S, s.rhs,
-                     s.Hmm_inv, s.chi))
+    moved = select(acc, (cand, cand_b_prior, cand_err, normal_cand, S_c, rhs_c,
+                         Hmm_inv_c, temp_chi),
+                   (s.states, s.b_prior, s.err_prior, s.normal, s.S, s.rhs,
+                    s.Hmm_inv, s.chi))
     states, b_prior, err_prior, normal, S, rhs, Hmm_inv, chi = moved
     lam = torch.where(acc, lam_acc, torch.where(rej, s.lam * s.ni, s.lam))
     ni = torch.where(acc, torch.full_like(s.ni, 2.0),
