@@ -269,12 +269,12 @@ def test_run_euroc_cli_and_calibration_raise_without_a_card(no_card, data, monke
 
 
 @pytest.mark.parametrize("call", [
-    lambda: bench.main(), lambda: cli.main(["bench"]), lambda: bench.host_roundtrip_ms(),
+    lambda: bench.main(), lambda: cli.main(["bench"]),
     lambda: bench.window_problem(8), lambda: bench.bench_window(8),
     lambda: bench.klt_inputs(), lambda: bench.bench_klt(), lambda: bench.global_problem(),
     lambda: bench.global_solve(None), lambda: bench.bench_global_ba(),
     lambda: bench.bench_e2e_sim(), lambda: bench.bench_fp32_ape()],
-    ids=["main", "cli bench", "host_roundtrip_ms", "window_problem", "bench_window",
+    ids=["main", "cli bench", "window_problem", "bench_window",
          "klt_inputs", "bench_klt", "global_problem", "global_solve", "bench_global_ba",
          "bench_e2e_sim", "bench_fp32_ape"])
 def test_bench_raises_without_a_card(no_card, monkeypatch, tmp_path, call):

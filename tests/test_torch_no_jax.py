@@ -41,7 +41,7 @@ MODULES = [
     "vio_tpu_torch.io", "vio_tpu_torch.features.stereo", "vio_tpu_torch.init.icp",
     "vio_tpu_torch.calib", "vio_tpu_torch.calib.allan",
     "vio_tpu_torch.calib.intrinsics", "vio_tpu_torch.hybrid", "vio_tpu_torch.viz",
-    "vio_tpu_torch.cli", "vio_tpu_torch.bench",
+    "vio_tpu_torch.cli", "vio_tpu_torch.bench", "vio_tpu_torch.trace",
 ]
 
 _PROBE = """

@@ -199,9 +199,16 @@ def main(argv=None):
     p.add_argument("--pixel-noise", type=float, default=0.0)
     p.add_argument("--out", default=None, help="TUM trajectory output path")
     p.add_argument("--log-jsonl", default=None,
-                   help="per-solve telemetry JSONL output path")
+                   help="per-solve telemetry JSONL output path: a line a solved frame "
+                        "with chi2, iterations, lam, factor counts, solve_ms, marg_ms, "
+                        "the host ms of each span opened in the frame (frame_ms, "
+                        "features_ms, triangulate_ms, pack_ms, step_ms, unpack_ms, "
+                        "outliers_ms, prior_ms, slide_ms; on the card upload_ms, "
+                        "replay_ms, wait_ms, capture_ms) and reads (the LM loop's "
+                        "host reads, 0 on the CPU)")
     p.add_argument("--profile", default=None,
-                   help="torch.profiler Chrome-trace output directory")
+                   help="torch.profiler Chrome-trace output directory; the trace "
+                        "carries the spans as vio.est.* and vio.graph.* ranges")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA device; raises without one)")
     p.add_argument("--dtype", default=None, choices=sorted(DTYPES),

@@ -16,12 +16,10 @@ the visual-IMU alignment stay on the host in float64 on every device.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
-from . import imu
+from . import imu, trace
 from .config import VioConfig
 from .device import resolve
 from .feature_manager import FeatureManager
@@ -217,6 +215,7 @@ class Estimator:
         # global, parameters.cpp:130-131).  Survives failure resets — a
         # hardware property, not a trajectory state.
         self.td = float(cfg.td)
+        self._record = None      # the solved frame's telemetry, until it ends
         self.clear_state()
 
     # ------------------------------------------------------------------
@@ -306,7 +305,73 @@ class Estimator:
     # ------------------------------------------------------------------
 
     def process_image(self, feats: dict, t: float):
-        """feats: {feature_id: (bearing (3,) with z=1, uv (2,), vel (2,))}."""
+        """feats: {feature_id: (bearing (3,) with z=1, uv (2,), vel (2,))}.
+        A frame that solves appends its telemetry record once it is done:
+        the solve's numbers, each span opened in the frame as
+        ``<name>_ms`` (the part after the dot: ``pack_ms``, ``step_ms``,
+        ``wait_ms``, ...; ``trace.py``), ``reads`` (the LM loop's host
+        reads of its condition, 0 on the CPU), ``solve_ms`` (pack + step)
+        and ``marg_ms`` (the prior chain)."""
+        m = trace.mark()
+        self._record = None      # nothing left from a call that raised
+        with trace.span("est.frame"):
+            self._process_image(feats, t)
+        rec, self._record = self._record, None
+        if rec is not None:
+            secs = trace.since(m)
+            ms = {name.partition(".")[2] + "_ms": round(s * 1e3, 3)
+                  for name, s in secs.items()}
+            rec.update(ms, solve_ms=round((secs["est.pack"] + secs["est.step"]) * 1e3, 3),
+                       marg_ms=ms["prior_ms"])
+            self.telemetry.append(rec)
+
+    def _process_image(self, feats: dict, t: float):
+        with trace.span("est.features"):
+            self._add_features(feats, t)
+
+        if self.solver_flag == SOLVER_INITIAL:
+            if self.frame_count == self.W:
+                # wait for extrinsic calibration; retry init at most every
+                # 0.1 s (estimator.cpp:185-192)
+                attempt = (self.estimate_extrinsic != 2
+                           and (t - self.initial_timestamp) > 0.1)
+                if attempt:
+                    self.initial_timestamp = t
+                if attempt and self._initial_structure():
+                    self.solver_flag = SOLVER_NON_LINEAR
+                    self._solve_odometry()
+                    with trace.span("est.slide"):
+                        self._slide_window()
+                        self.fm.remove_failures()
+                        self.last_P = self.Ps[self.W].copy()
+                        self.last_R = self.Rs[self.W].copy()
+                else:
+                    self._slide_window()
+            else:
+                self.frame_count += 1
+                prev = self.frame_count - 1
+                self.Ps[self.frame_count] = self.Ps[prev]
+                self.Rs[self.frame_count] = self.Rs[prev]
+                self.Vs[self.frame_count] = self.Vs[prev]
+                self.Bas[self.frame_count] = self.Bas[prev]
+                self.Bgs[self.frame_count] = self.Bgs[prev]
+        else:
+            self._solve_odometry()
+            with trace.span("est.slide"):
+                if self._failure_detection():
+                    self.failure_count += 1
+                    self.clear_state()
+                    return
+                if self.cfg.estimate_td:
+                    self._estimate_td()
+                self._slide_window()
+                self.fm.remove_failures()
+                self.last_P = self.Ps[self.W].copy()
+                self.last_R = self.Rs[self.W].copy()
+
+    def _add_features(self, feats: dict, t: float):
+        """The frame's features into the feature manager and the window
+        (processImage's front half, estimator.cpp:141-184)."""
         if self.cfg.rolling_shutter and self.cfg.rolling_shutter_tr > 0:
             # rolling-shutter row-time compensation (the full VINS-Mono's
             # TD_FACTOR row term, parameters.cpp TR): shift each feature
@@ -349,44 +414,6 @@ class Estimator:
                     if ok:
                         self.ric = np.asarray(ric)
                         self.estimate_extrinsic = 1
-
-        if self.solver_flag == SOLVER_INITIAL:
-            if self.frame_count == self.W:
-                # wait for extrinsic calibration; retry init at most every
-                # 0.1 s (estimator.cpp:185-192)
-                attempt = (self.estimate_extrinsic != 2
-                           and (t - self.initial_timestamp) > 0.1)
-                if attempt:
-                    self.initial_timestamp = t
-                if attempt and self._initial_structure():
-                    self.solver_flag = SOLVER_NON_LINEAR
-                    self._solve_odometry()
-                    self._slide_window()
-                    self.fm.remove_failures()
-                    self.last_P = self.Ps[self.W].copy()
-                    self.last_R = self.Rs[self.W].copy()
-                else:
-                    self._slide_window()
-            else:
-                self.frame_count += 1
-                prev = self.frame_count - 1
-                self.Ps[self.frame_count] = self.Ps[prev]
-                self.Rs[self.frame_count] = self.Rs[prev]
-                self.Vs[self.frame_count] = self.Vs[prev]
-                self.Bas[self.frame_count] = self.Bas[prev]
-                self.Bgs[self.frame_count] = self.Bgs[prev]
-        else:
-            self._solve_odometry()
-            if self._failure_detection():
-                self.failure_count += 1
-                self.clear_state()
-                return
-            if self.cfg.estimate_td:
-                self._estimate_td()
-            self._slide_window()
-            self.fm.remove_failures()
-            self.last_P = self.Ps[self.W].copy()
-            self.last_R = self.Rs[self.W].copy()
 
     def _estimate_td(self):
         """Online camera-IMU time-offset refinement (the capability behind
@@ -710,7 +737,8 @@ class Estimator:
     # ------------------------------------------------------------------
 
     def _solve_odometry(self):
-        self.fm.triangulate(self.Ps, self.Rs, self.tic, self.ric)
+        with trace.span("est.triangulate"):
+            self.fm.triangulate(self.Ps, self.Rs, self.tic, self.ric)
         self._backend_optimization()
 
     def _pack_states(self) -> W.WindowStates:
@@ -785,11 +813,19 @@ class Estimator:
         return min(cap, self.cfg.max_features * self.W1)
 
     def _backend_optimization(self):
-        t0 = time.perf_counter()
-        states = self._pack_states()
-        imu_pack = self._pack_imu_raw()
-        pts_i, pts_j, start, obs_mask, feat_valid = self._pack_reproj_raw()
-        marg_old = self.marg_flag == MARGIN_OLD
+        with trace.span("est.pack"):
+            states = self._pack_states()
+            imu_pack = self._pack_imu_raw()
+            pts_i, pts_j, start, obs_mask, feat_valid = self._pack_reproj_raw()
+            marg_old = self.marg_flag == MARGIN_OLD
+            args = (states, *imu_pack, pts_i, pts_j, start, obs_mask, feat_valid,
+                    self.H_prior, self.b_prior, self.err_prior, self.Jt_prior_inv,
+                    self.g, self.noise_diag, np.float64(self.cfg.focal_length / 1.5))
+            kw = dict(max_iter=self.cfg.max_num_iterations,
+                      fix_ext=self.estimate_extrinsic == 0,
+                      n_obs=self._obs_cap(obs_mask), marg_old=marg_old,
+                      exact_noise=self.cfg.imu_noise_model == "exact",
+                      device=self.device, dtype=self.dtype)
 
         # ONE device call for the whole frame (solver/frame_step.py):
         # preintegrate → LM solve → yaw-gauge re-fix → outlier errors →
@@ -797,22 +833,15 @@ class Estimator:
         # the card it is the frame's captured graphs, replayed (a capture
         # or replay that fails raises); on the CPU the same functions run
         # eagerly.
-        args = (states, *imu_pack, pts_i, pts_j, start, obs_mask, feat_valid,
-                self.H_prior, self.b_prior, self.err_prior, self.Jt_prior_inv,
-                self.g, self.noise_diag, np.float64(self.cfg.focal_length / 1.5))
-        kw = dict(max_iter=self.cfg.max_num_iterations,
-                  fix_ext=self.estimate_extrinsic == 0,
-                  n_obs=self._obs_cap(obs_mask), marg_old=marg_old,
-                  exact_noise=self.cfg.imu_noise_model == "exact",
-                  device=self.device, dtype=self.dtype)
-        if self.device.type == "cuda":
-            out = frame_step.frame_step_graphed(*args, **kw)
-        else:
-            out = frame_step.fetch(frame_step.frame_step(*args, **kw))
-        t_solve = time.perf_counter() - t0
-        self.b_prior = np.asarray(out.b_prior, np.float64)
-        self.err_prior = np.asarray(out.err_prior, np.float64)
-        self._unpack_states(out.states)
+        with trace.span("est.step"):
+            if self.device.type == "cuda":
+                out = frame_step.frame_step_graphed(*args, **kw)
+            else:
+                out = frame_step.fetch(frame_step.frame_step(*args, **kw))
+        with trace.span("est.unpack"):
+            self.b_prior = np.asarray(out.b_prior, np.float64)
+            self.err_prior = np.asarray(out.err_prior, np.float64)
+            self._unpack_states(out.states)
 
         # post-solve reprojection outlier rejection (the full VINS-Mono's
         # removeOutlier): features whose mean residual at the solution
@@ -820,12 +849,13 @@ class Estimator:
         # remove_failures() after the slide — their constant measurement
         # offsets are inconsistent with any rigid point and bias the scale.
         if self.cfg.outlier_reproj_px > 0:
-            errs = np.asarray(out.feat_errs)
-            gate = self.cfg.outlier_reproj_px / self.cfg.focal_length
-            cands = self.fm.candidates()[:self.cfg.max_features]
-            for i, ft in enumerate(cands):
-                if errs[i] > gate:
-                    ft.solve_flag = 2
+            with trace.span("est.outliers"):
+                errs = np.asarray(out.feat_errs)
+                gate = self.cfg.outlier_reproj_px / self.cfg.focal_length
+                cands = self.fm.candidates()[:self.cfg.max_features]
+                for i, ft in enumerate(cands):
+                    if errs[i] > gate:
+                        ft.solve_flag = 2
 
         # marginalization (estimator.cpp:1131-1142).  The prior CHAIN
         # (Schur of the evicted block + eigh pseudo-inverse + sqrt form)
@@ -834,7 +864,32 @@ class Estimator:
         # (round-5 on-chip accuracy fix; the reference needed the same
         # care, problem.cc:747-779).  The factor linearization itself
         # came back from the fused device call (marg_Hpp/marg_bp).
-        t1 = time.perf_counter()
+        # The solve's record is built inside the prior's span too: that is
+        # ``marg_ms``'s interval (the chain, the forgetting, the record).
+        with trace.span("est.prior"):
+            self._marginalize(out, marg_old)
+            self.frame_solved += 1
+
+            # per-solve structured telemetry (the reference prints these at
+            # problem.cc:177,246-248; here they are machine-readable —
+            # SURVEY §5.1/5.5); process_image adds the frame's spans and
+            # appends it once the frame is done
+            self._record = dict(
+                t=float(self.headers[self.frame_count]),
+                chi2_init=float(np.asarray(out.chi2_init)),
+                chi2=float(np.asarray(out.chi2)),
+                iterations=int(np.asarray(out.iterations)),
+                lam=float(np.asarray(out.lam)),
+                n_features=int(feat_valid.sum()),
+                n_reproj_factors=int(obs_mask.sum()),
+                n_imu_factors=int(imu_pack[6].sum()),
+                marg="old" if self.marg_flag == MARGIN_OLD else "new",
+                reads=int(out.reads),
+            )
+
+    def _marginalize(self, out, marg_old: bool):
+        """The host float64 prior chain from the frame step's outputs, then
+        the prior's forgetting."""
         if marg_old:
             Hp, bp, errp, Jtp = marginalize.finalize_old_from_blocks(
                 out.marg_Hpp, out.marg_bp)
@@ -845,8 +900,6 @@ class Estimator:
         self.b_prior = np.asarray(bp)
         self.err_prior = np.asarray(errp)
         self.Jt_prior_inv = np.asarray(Jtp)
-        stats = dict(chi2=out.chi2, chi2_init=out.chi2_init,
-                     iterations=out.iterations, lam=out.lam)
         lam = self.cfg.prior_forgetting
         if 0.0 < lam < 1.0:
             # exponential information decay (covariance inflation): scale
@@ -862,24 +915,6 @@ class Estimator:
             self.b_prior = np.zeros_like(self.b_prior)
             self.err_prior = np.zeros_like(self.err_prior)
             self.Jt_prior_inv = np.zeros_like(self.Jt_prior_inv)
-        self.frame_solved += 1
-
-        # per-solve structured telemetry (the reference prints these at
-        # problem.cc:177,246-248; here they are machine-readable —
-        # SURVEY §5.1/5.5)
-        self.telemetry.append(dict(
-            t=float(self.headers[self.frame_count]),
-            chi2_init=float(np.asarray(stats["chi2_init"])),
-            chi2=float(np.asarray(stats["chi2"])),
-            iterations=int(np.asarray(stats["iterations"])),
-            lam=float(np.asarray(stats["lam"])),
-            n_features=int(feat_valid.sum()),
-            n_reproj_factors=int(obs_mask.sum()),
-            n_imu_factors=int(imu_pack[6].sum()),
-            marg="old" if self.marg_flag == MARGIN_OLD else "new",
-            solve_ms=round(t_solve * 1e3, 3),
-            marg_ms=round((time.perf_counter() - t1) * 1e3, 3),
-        ))
 
     def _unpack_states(self, s: W.WindowStates):
         """double2vector unpack of the fetched gauge-fixed solution (the

@@ -41,6 +41,7 @@ class FrameOut(NamedTuple):
     feat_errs: torch.Tensor     # (F,) mean reproj error per feature
     marg_Hpp: torch.Tensor      # (P, P) marg subproblem, landmarks eliminated
     marg_bp: torch.Tensor       # (P,)
+    reads: int = 0              # the graphed loop's host reads of its condition
 
 
 def _gauge_fix(origin_Ps, origin_Qs, s: W.WindowStates) -> W.WindowStates:
@@ -224,7 +225,8 @@ def frame_step_graphed(states: W.WindowStates, *arrays,
     key's first frame): one copy of every input from one pinned buffer,
     the replays, one copy of every output back.  Takes frame_step's
     arguments; returns the ``FrameOut`` that ``fetch`` would, as host
-    float64 arrays (``iterations`` an int).  Raises where there is no
+    float64 arrays (``iterations`` an int), with the loop's host reads of
+    its condition in ``reads``.  Raises where there is no
     CUDA device; there is no eager fallback."""
     key = frame_key(states, arrays[0], max_iter, fix_ext, loss_delta, n_obs,
                     marg_old, exact_noise, device=device, dtype=dtype)
@@ -240,7 +242,7 @@ def frame_step_graphed(states: W.WindowStates, *arrays,
     return FrameOut(states=W.WindowStates(*out[:n]), b_prior=b_prior,
                     err_prior=err_prior, chi2=chi2, chi2_init=chi2_init,
                     iterations=int(it), lam=lam, feat_errs=errs, marg_Hpp=mH,
-                    marg_bp=mb)
+                    marg_bp=mb, reads=lg.reads)
 
 
 def fetch(out: FrameOut) -> FrameOut:

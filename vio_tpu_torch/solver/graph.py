@@ -59,16 +59,22 @@ each replay adds them to its ``.launches``.
 
 Nothing here runs on the CPU: the CPU runs the same functions eagerly
 (``lm.solve_window``, ``frame_step.frame_step``, ``run_eagerly``).
+
+The host's part of a call is timed by spans (``trace.py``): a slab's
+upload (``graph.upload``), each replay's enqueue (``graph.replay``), the
+host blocked on a condition read or an output readback (``graph.wait``)
+and a key's warm-up and capture (``graph.capture``, the interval that
+``STATS["capture_s"]`` sums).
 """
 from __future__ import annotations
 
 import threading
-import time
 from collections import Counter
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops import _build, linsolve, ransac
 from . import lm
 
@@ -187,11 +193,12 @@ class Slab:
         """Write host arrays into the first views' staging buffer, then
         one copy of those views."""
         arrays = list(arrays)
-        for v, a in zip(self.host_views, arrays):
-            v[...] = a
-        if arrays:
-            end = self.ends[len(arrays) - 1]
-            self.dev[:end].copy_(self.host[:end], non_blocking=True)
+        with trace.span("graph.upload"):
+            for v, a in zip(self.host_views, arrays):
+                v[...] = a
+            if arrays:
+                end = self.ends[len(arrays) - 1]
+                self.dev[:end].copy_(self.host[:end], non_blocking=True)
 
     def load(self, tensors, start: int = 0) -> None:
         """Copy device tensors into the views from ``start`` on (one copy
@@ -231,25 +238,25 @@ def _capture_key(device, dtypes: tuple, warm_up, body) -> int:
     returns those bytes.  The kernels are built first (nvcc must never run
     inside a capture), outside the seconds counted."""
     _build.load()
-    t0 = time.perf_counter()
-    stream = _capture_stream(device)
-    with _CAPTURE_LOCK:
-        warm_key = (threading.get_ident(), device, dtypes)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        if warm_key not in _WARM:
-            # library handles and workspaces come into being here, on the
-            # capture stream, not inside the capture
-            with torch.cuda.stream(stream):
-                warm_up()
-            stream.synchronize()
-            _WARM.add(warm_key)
-        torch.cuda.empty_cache()          # the pool's size: what stays reserved
-        reserved = torch.cuda.memory_reserved(device)
-        body(stream)
-        torch.cuda.empty_cache()
-        pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    with trace.span("graph.capture") as sp:
+        stream = _capture_stream(device)
+        with _CAPTURE_LOCK:
+            warm_key = (threading.get_ident(), device, dtypes)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            if warm_key not in _WARM:
+                # library handles and workspaces come into being here, on
+                # the capture stream, not inside the capture
+                with torch.cuda.stream(stream):
+                    warm_up()
+                stream.synchronize()
+                _WARM.add(warm_key)
+            torch.cuda.empty_cache()          # the pool's size: what stays reserved
+            reserved = torch.cuda.memory_reserved(device)
+            body(stream)
+            torch.cuda.empty_cache()
+            pool_bytes = torch.cuda.memory_reserved(device) - reserved
     STATS["pool_bytes"] += pool_bytes
-    STATS["capture_s"] += time.perf_counter() - t0
+    STATS["capture_s"] += sp.seconds
     return pool_bytes
 
 
@@ -285,7 +292,8 @@ class _Readback:
         which synchronises)."""
         if self.packed is None:
             return []
-        self.host.copy_(self.packed)
+        with trace.span("graph.wait"):
+            self.host.copy_(self.packed)
         flat = self.host.numpy()
         out, o = [], 0
         for shape, dt in self.meta:
@@ -351,7 +359,8 @@ class LoopGraph:
         _evict(self)
 
     def _replay(self, i: int, name: str) -> None:
-        self.graphs[i].replay()
+        with trace.span("graph.replay"):
+            self.graphs[i].replay()
         _replayed(self.launches[name])
         STATS["replays"] += 1
         if name != "tail":
@@ -361,7 +370,8 @@ class LoopGraph:
     def _live(self) -> bool:
         STATS["reads"] += 1
         self.reads += 1
-        return bool(self.live)
+        with trace.span("graph.wait"):
+            return bool(self.live)
 
     def run(self, keep=()) -> list[np.ndarray]:
         """Replay the loop on the inputs loaded last (``inputs.upload`` or
@@ -431,7 +441,8 @@ class ProgramGraph:
             self.inputs.load(device, start=len(host))
             if self.graph is None:
                 self._capture()
-            self.graph.replay()
+            with trace.span("graph.replay"):
+                self.graph.replay()
             _replayed(self.launches)
             STATS["program_replays"] += 1
             for dst, src in zip(keep, self.kept):
