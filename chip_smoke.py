@@ -33,6 +33,17 @@ them.  Phases, each of which raises on failure:
    output: the same LM iterations, every state within float32 round-off
    (GRAPH_RTOL of each leaf's largest entry + GRAPH_ATOL); the largest
    difference is printed;
+26. the preintegration kernel, right after phase 22: every frame key's
+   head graph holds one launch of ``imu.preintegrate_kernel`` (its chunk
+   and tail none), and N_PREINT_REPLAYS of phase 5's frames run again
+   through their graphs add one launch each; then the kernel against its
+   plain version (``imu.preintegrate_reference``) on the card at the
+   benchmark cell's shapes, PREINT_W intervals of M ∈ PREINT_M slots, in
+   float32 and float64 and with either noise model, on full and scattered
+   masks, to tests/test_torch_imu.py's bounds (PREINT_TOL); with every
+   slot live (the longest interval sets the kernel's time) the kernel's
+   device ms as a graph node and back to back from Python, the plain
+   loop's as a captured graph, and the least time by operations;
 6. frontend functions, card against CPU: ``klt.track_fb``,
    ``klt.sample_templates`` + ``klt.refine_on_templates``,
    ``detect.detect`` and ``clahe.clahe`` on one rendered 640×640 frame
@@ -254,10 +265,12 @@ Times are printed and recorded, never asserted.  The script's own time is
 printed after the last phase.  The line before the last
 is the kernels' JSON record: ``gj_solve``, whose ``launches`` sums the
 launches of phases 5, 7, 9, 10 (the pose graph's among them, also given
-alone), 11-16, 17, 18, 20 and 21, and
+alone), 11-16, 17, 18, 20 and 21,
 ``essential_ransac`` (sweep, refit and refit_best), whose ``launches`` sums those of
 phases 5, 7, 9, 10, 17, 18, 20 and 21 (the tracker's on the image paths,
-the init's bootstrap on every estimator path).  Each count is set to 0
+the init's bootstrap on every estimator path), and ``preintegrate``,
+whose ``launches`` sums those of phases 5, 7, 9, 10, 17, 18 and 20 (one a
+solved frame from the head graphs, the initialiser's eager calls).  Each count is set to 0
 just before each path and read just after; in phases 13-14 each rank
 counts its own and the ranks' counts are summed; in phases 20 and 21 each
 process reports its own, in its JSON line or its details.  The last line
@@ -291,6 +304,13 @@ N_GRAPH_FRAMES = 8             # phase 22: post-init frames replayed eagerly
 # order (a difference is expected to be 0); the bound is float32 round-off
 # of an LM solve relative to each leaf's largest entry
 GRAPH_RTOL, GRAPH_ATOL = 1e-5, 1e-6
+# phase 26: the benchmark cell's window (W = 10 intervals) at its IMU
+# buckets, 48 slots about the mean frame's and 72 the tail frames'; the
+# kernel against the plain loop to tests/test_torch_imu.py's bounds
+# (rtol of each leaf's largest entry, atol); phase 5's frames run again
+PREINT_W, PREINT_M = 10, (48, 72)
+PREINT_TOL = {torch.float32: (2e-5, 0.0), torch.float64: (1e-10, 1e-12)}
+N_PREINT_REPLAYS = 8
 N_IMAGE_FRAMES = 155
 N_CLAHE_FRAMES = 30
 N_TWIN_TRACKER_FRAMES = 30     # phases 8 and 23: graphed against eager read_image
@@ -491,6 +511,16 @@ def ransac_counted(by_path: dict, label: str):
     ransac.sweep.launches = ransac.refit.launches = ransac.refit_best.launches = 0
     yield
     by_path[label] = ransac.launches()
+
+
+@contextlib.contextmanager
+def preint_counted(by_path: dict, label: str):
+    """Zero the preintegration kernel's count just before a path, record
+    its launches under ``label`` just after."""
+    from vio_tpu_torch import imu
+    imu.preintegrate_kernel.launches = 0
+    yield
+    by_path[label] = imu.preintegrate_kernel.launches
 
 
 def graph_rates(before: dict, frames: int, solves: int) -> tuple[str, dict]:
@@ -1189,6 +1219,101 @@ def least_ms(flops: float, nbytes: float, dtype) -> tuple[float, str]:
     bytes over the memory rate, in ms, and which it is."""
     t_ops, t_bytes = flops / PEAK_FLOP_S[dtype], nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def preint_step_flops(exact: bool) -> int:
+    """Operations (a multiply or an add each) of one live step of
+    csrc/preintegrate.cu's block-structured recurrence (its note)."""
+    return 12112 if exact else 9187
+
+
+def preint_inputs(W: int, M: int, dtype, seed: int, scattered: bool) -> list:
+    """W intervals of M slots of a 200 Hz stream, every slot live or a
+    scattered mask, in the estimator's leaves' types on the card."""
+    rng = np.random.default_rng(seed)
+    dts = np.full((W, M), 1.0 / 200.0) * (1.0 + 0.01 * rng.standard_normal((W, M)))
+    accs = np.array([0.0, 0.0, 9.81]) + 0.5 * rng.standard_normal((W, M, 3))
+    gyrs = 0.3 * rng.standard_normal((W, M, 3))
+    mask = rng.random((W, M)) < 0.6 if scattered else np.ones((W, M), bool)
+    acc0 = np.array([0.0, 0.0, 9.81]) + 0.5 * rng.standard_normal((W, 3))
+    gyr0 = 0.3 * rng.standard_normal((W, 3))
+    ba = 0.01 * rng.standard_normal((W, 3))
+    bg = 0.001 * rng.standard_normal((W, 3))
+    nd = np.array([0.2687 ** 2] * 3 + [0.2121 ** 2] * 3 + [0.2687 ** 2] * 3
+                  + [0.2121 ** 2] * 3 + [7.07e-6 ** 2] * 3 + [7.07e-7 ** 2] * 3)
+    return [torch.as_tensor(a, device="cuda") if a.dtype == np.bool_
+            else torch.as_tensor(a, dtype=dtype, device="cuda")
+            for a in (dts, accs, gyrs, mask, acc0, gyr0, ba, bg, nd)]
+
+
+def preintegrate_on_card(frames: list, tag: str) -> dict:
+    """Phase 26: the preintegration kernel in the frame's graphs, then
+    against its plain version at the benchmark cell's shapes.  Returns
+    {(M, dtype, exact): numbers}."""
+    from vio_tpu_torch import imu
+    from vio_tpu_torch.solver import frame_step, graph
+
+    k = graph.COUNTED.index(imu.preintegrate_kernel)
+    with graph._LOCK:
+        loops = [(key, g) for key, g in graph._CACHE.items()
+                 if isinstance(key[0], frame_step.FrameKey)]
+    for key, lg in loops:
+        held = {name: n[k] for name, n in lg.launches.items()}
+        if held != {"head": 1, "chunk": 0, "tail": 0}:
+            raise AssertionError(f"preintegrate in the graphs of {key}: {held}")
+    n0 = imu.preintegrate_kernel.launches
+    replayed = frames[-N_PREINT_REPLAYS:]
+    for args, kw, _ in replayed:
+        frame_step.frame_step_graphed(*args, **kw)
+    torch.cuda.synchronize()
+    grew = imu.preintegrate_kernel.launches - n0
+    if not (len(loops) > 0 and grew == len(replayed)):
+        raise AssertionError(f"preintegrate: {grew} launches over {len(replayed)} frames "
+                             f"({len(loops)} frame keys)")
+    print(f"preintegrate: one launch in the head graph of each of {len(loops)} frame keys, "
+          f"none in their chunks and tails; {grew} launches over {len(replayed)} frames "
+          f"replayed {tag}")
+
+    rec = {}
+    for M in PREINT_M:
+        for dtype in (torch.float32, torch.float64):
+            rtol, atol = PREINT_TOL[dtype]
+            for exact in (True, False):
+                errs = []
+                for scattered in (False, True):
+                    args = preint_inputs(PREINT_W, M, dtype, seed=M + scattered,
+                                         scattered=scattered)
+                    out = imu.preintegrate_kernel(*args, exact)
+                    torch.cuda.synchronize()
+                    ref = imu.preintegrate_reference(*args, exact)
+                    for name, a, b in zip(imu.PreintState._fields, out, ref):
+                        d = float((a - b).abs().max())
+                        scale = float(b.abs().max())
+                        if not d <= atol + rtol * scale:
+                            raise AssertionError(
+                                f"preintegrate M={M} {dtype} exact={exact} scattered="
+                                f"{scattered}: {name} differs by {d:.3e} (largest {scale:.3e})")
+                        errs.append(d / max(scale, 1e-300))
+                args = preint_inputs(PREINT_W, M, dtype, seed=M, scattered=False)
+                ms = graph_ms(lambda: imu.preintegrate_kernel(*args, exact))
+                enqueued_ms = cuda_ms(lambda: imu.preintegrate_kernel(*args, exact),
+                                      reps=50, warmup=5)
+                plain_ms = graph_ms(lambda: imu.preintegrate_reference(*args, exact),
+                                    calls=1, reps=5)
+                elem = torch.finfo(dtype).bits // 8
+                nbytes = (PREINT_W * M * 7 * elem + PREINT_W * M + PREINT_W * 12 * elem
+                          + 18 * elem + PREINT_W * 473 * elem)
+                bound, bound_by = least_ms(PREINT_W * M * preint_step_flops(exact), nbytes,
+                                           dtype)
+                rec[(M, dtype, exact)] = dict(err=max(errs), ms=ms, enqueued_ms=enqueued_ms,
+                                              plain_ms=plain_ms, bound_ms=bound,
+                                              bound_by=bound_by)
+                print(f"preintegrate {str(dtype)[6:]} W={PREINT_W} M={M} "
+                      f"{'exact' if exact else 'independent'}: largest |d| of a leaf "
+                      f"{max(errs):.3e} of its largest entry; kernel {ms:.4f} ms as a graph "
+                      f"node, {enqueued_ms:.4f} ms back to back; plain {plain_ms:.3f} ms "
+                      f"as a graph; bound {bound:.3e} ms ({bound_by}) {tag}")
+    return rec
 
 
 def ransac_kernel_against_plain(recorded: list, cfg, tag: str, device="cuda") -> dict:
@@ -2448,12 +2573,12 @@ def device_functions_on_card(tag: str) -> None:
                                  "bounds missed")
 
 
-def cli_on_card(tag: str) -> tuple[dict, dict]:
+def cli_on_card(tag: str, preint: dict) -> tuple[dict, dict]:
     """Phase 20.  ``python -m vio_tpu_torch.cli`` as three processes at
     once: ``run --dataset sim``, ``run --dataset hybrid`` on streams
     written here, and ``sim --out``.  Returns the launches of each run,
     read from its JSON line: the Gauss-Jordan kernel's and the RANSAC
-    kernel's."""
+    kernel's; the preintegration kernel's go into ``preint``."""
     import os
     import tempfile
 
@@ -2513,6 +2638,7 @@ def cli_on_card(tag: str) -> tuple[dict, dict]:
             raise AssertionError(f"cli {k}: {r} (bounds: poses, launches, APE < {CLI_APE} m)")
         launches[f"cli {k} {want}"] = r["gj_solve_launches"]
         ransac[f"cli {k} {want}"] = r["essential_ransac_launches"]
+        preint[f"cli {k} {want}"] = r["preintegrate_launches"]
         g, n = r["graphs"], max(r["frames"], 1)
         print(f"cli {k} graphs per pose: tracker {g['program_replays'] / n:.2f} replays, "
               f"{g['program_reads'] / n:.2f} reads; estimator {g['replays'] / n:.2f} "
@@ -2723,10 +2849,12 @@ def main() -> int:
     graph.reset_stats()
     linsolve.gj_solve.launches = 0
     ransac_by_path = {}            # the RANSAC kernel's launches by path
+    preint_by_path = {}            # the preintegration kernel's launches by path
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        with ransac_counted(ransac_by_path, "run_sim float32"):
+        with ransac_counted(ransac_by_path, "run_sim float32"), \
+                preint_counted(preint_by_path, "run_sim float32"):
             est, traj = runner.run_sim(data, cfg, n_frames=N_FRAMES)
     finally:
         frame_step.frame_step_graphed = graphed
@@ -2799,9 +2927,16 @@ def main() -> int:
     print(f"chip_smoke: phase 22 (graphs against eager) took "
           f"{time.perf_counter() - t_phase:.1f} s {tag}")
 
+    # ---- 26. the preintegration kernel: in the graphs, against plain ----
+    t_phase = time.perf_counter()
+    preint_rec = preintegrate_on_card(frames, tag)
+    print(f"chip_smoke: phase 26 (preintegration kernel) took "
+          f"{time.perf_counter() - t_phase:.1f} s {tag}")
+
     # ---- 6-8. the image frontend and the image main path ----
     frontend_on_card_against_cpu(est.device, tag)
-    with ransac_counted(ransac_by_path, "run_images float64"):
+    with ransac_counted(ransac_by_path, "run_images float64"), \
+            preint_counted(preint_by_path, "run_images float64"):
         sync = image_main_path(None, tag)
     clahe_and_distortion_on_card(tag)
 
@@ -2816,11 +2951,13 @@ def main() -> int:
           f"{time.perf_counter() - t_phase:.1f} s {tag}")
 
     # ---- 9-10. the async image path and loop closing ----
-    with ransac_counted(ransac_by_path, "run_images_async float64"):
+    with ransac_counted(ransac_by_path, "run_images_async float64"), \
+            preint_counted(preint_by_path, "run_images_async float64"):
         async_launches = async_image_path(None, tag, sync)
     orb_on_card_against_cpu(est.device, tag)
     bench = BenchProcess()         # phase 21, beside phase 10
-    with ransac_counted(ransac_by_path, "run_sim + LoopCloser float64"):
+    with ransac_counted(ransac_by_path, "run_sim + LoopCloser float64"), \
+            preint_counted(preint_by_path, "run_sim + LoopCloser float64"):
         loop = loop_closing_path(None, tag, LOOP_DTYPE)
 
 
@@ -2847,7 +2984,8 @@ def main() -> int:
 
     # ---- 17-21. online td, the EuRoC layout, device functions, the CLI, the bench ----
     def online_td():
-        with ransac_counted(ransac_by_path, "online td float32"):
+        with ransac_counted(ransac_by_path, "online td float32"), \
+                preint_counted(preint_by_path, "online td float32"):
             by_path["online td float32"] = online_td_path(tag)
 
     def both(counts):
@@ -2856,14 +2994,15 @@ def main() -> int:
         ransac_by_path.update(rs)
 
     def euroc():
-        n, rs = euroc_layout_path(tag, sync)
+        with preint_counted(preint_by_path, "run_euroc float64"):
+            n, rs = euroc_layout_path(tag, sync)
         both(({"run_euroc float64": n}, rs))
 
     for phase, label, run in (
             (17, "online td", online_td),
             (18, "EuRoC layout", euroc),
             (19, "device functions", lambda: device_functions_on_card(tag)),
-            (20, "the CLI", lambda: both(cli_on_card(tag))),
+            (20, "the CLI", lambda: both(cli_on_card(tag, preint_by_path))),
             (21, "the bench", lambda: both(bench.check(tag))),
             (25, "the pose graph", lambda: rec.update(posegraph_on_card(loop["closer"], tag)))):
         t_phase = time.perf_counter()
@@ -2883,6 +3022,11 @@ def main() -> int:
                                ransac_by_path["run_images_async float64"])):
         raise AssertionError(f"the RANSAC kernel did not launch on an image path: "
                              f"{ransac_by_path}")
+    if not all(n > 0 for n in preint_by_path.values()):
+        raise AssertionError(f"the preintegration kernel did not launch on every "
+                             f"estimator path: {preint_by_path}")
+    print(f"preintegrate launches by path: {json.dumps(preint_by_path)} {tag}")
+    p64 = preint_rec[(PREINT_M[0], torch.float64, True)]
     print(json.dumps({"kernels": [{
         "name": "gj_solve", "route": "cuda",
         "source": "vio_tpu_torch/csrc/gj_solve.cu",
@@ -2929,7 +3073,21 @@ def main() -> int:
                               "float64": r64["count_agree_own"]},
         "count_agree_plain_float64": {"float32": r32["count_agree_plain64"],
                                       "float64": r64["count_agree_plain64"]},
-        "plain_float32_count_agree_plain_float64": r32["plain_count_agree_plain64"]}]}))
+        "plain_float32_count_agree_plain_float64": r32["plain_count_agree_plain64"]}, {
+        # the benchmark cell's shape and type (float64, exact noise) under
+        # the keys the record requires; every shape, type and noise model
+        # under "shapes"
+        "name": "preintegrate", "route": "cuda",
+        "source": "vio_tpu_torch/csrc/preintegrate.cu",
+        "replaces": "none: vio_tpu/imu.py:180's lax.scan, left to XLA",
+        "launches": sum(preint_by_path.values()),
+        "max_abs_err": p64["err"],
+        "ms": p64["ms"], "plain_ms": p64["plain_ms"],
+        "bound_ms": p64["bound_ms"], "bound_by": p64["bound_by"],
+        "enqueued_ms": p64["enqueued_ms"],
+        "launches_by_path": preint_by_path,
+        "shapes": {f"{str(dt)[6:]} W={PREINT_W} M={M} {'exact' if ex else 'independent'}":
+                   preint_rec[(M, dt, ex)] for M, dt, ex in preint_rec}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0

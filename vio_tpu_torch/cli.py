@@ -14,8 +14,9 @@ The device work runs on the CUDA device unless ``--device cpu`` is given
 the simulation dataset and float64 for the image datasets, whose
 configurations need it (the tracker keeps its device's default);
 ``--dtype`` overrides it.  Each run prints one JSON line, which includes
-the Gauss-Jordan and RANSAC kernels' launches and the CUDA graphs' keys,
-replays and host reads (``solver/graph.py``; 0 on the CPU).
+the Gauss-Jordan, RANSAC and preintegration kernels' launches and the
+CUDA graphs' keys, replays and host reads (``solver/graph.py``; 0 on the
+CPU).
 """
 from __future__ import annotations
 
@@ -64,6 +65,7 @@ class _MaybeProfile:
 
 
 def _result(dataset, est, traj, wall, **extra):
+    from . import imu
     from .ops import linsolve, ransac
     from .solver import graph
     return dict(dataset=dataset, frames=len(traj["t"]),
@@ -72,6 +74,7 @@ def _result(dataset, est, traj, wall, **extra):
                 device=str(est.device), dtype=str(est.dtype).removeprefix("torch."),
                 gj_solve_launches=linsolve.gj_solve.launches,
                 essential_ransac_launches=ransac.launches(),
+                preintegrate_launches=imu.preintegrate_kernel.launches,
                 graphs={k: graph.STATS[k] for k in ("keys", "replays", "reads",
                                                     "program_replays", "program_reads")},
                 **extra)

@@ -2,19 +2,26 @@
 
 Port of ``vio_tpu/imu.py`` (reference: vins-mono/include/factor/
 integration_base.h:54-128 midPointIntegration, :160-186 evaluate).  Every
-function is batched over leading dimensions; the JAX ``lax.scan`` over the
-M samples of a buffer becomes a Python loop over M, each step batched over
-all window intervals at once.
+function is batched over leading dimensions.  The JAX ``lax.scan`` over the
+M samples of a buffer is, on a CUDA tensor, one hand-written kernel
+(``preintegrate_kernel``, ``csrc/preintegrate.cu``: a thread block per
+interval, the steps a loop inside it) and, on a CPU tensor, its plain
+version ``preintegrate_reference``, a Python loop over M, each step batched
+over all intervals at once.  ``preintegrate`` routes by device and never
+falls back from one to the other.
 
 State ordering (15): [p(0:3), theta(3:6), v(6:9), ba(9:12), bg(12:15)].
 Noise ordering (18): [an0, gn0, an1, gn1, baw, bgw].
 """
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import NamedTuple
 
 import torch
 
+from .ops import _build
 from .utils import lie
 
 
@@ -153,15 +160,11 @@ def midpoint_step(state: PreintState, dt, acc1, gyr1, noise_d, X=None):
     ), X_next
 
 
-def preintegrate(dts, accs, gyrs, mask, acc0, gyr0, ba, bg, noise_d,
-                 exact_noise: bool = True) -> PreintState:
-    """Integrate fixed-capacity buffers of IMU samples.
-
-    dts (..., M), accs (..., M, 3), gyrs (..., M, 3), mask (..., M) bool;
-    acc0/gyr0/ba/bg (..., 3).  Masked-out steps are no-ops (identity
-    carry).  Equivalent to repeated IntegrationBase::push_back
-    (integration_base.h:30-52).  exact_noise: propagate the
-    shared-boundary-sample noise correlation (config.imu_noise_model)."""
+def preintegrate_reference(dts, accs, gyrs, mask, acc0, gyr0, ba, bg, noise_d,
+                           exact_noise: bool = True) -> PreintState:
+    """The kernel's plain version: ``preintegrate`` as a Python loop of
+    ``midpoint_step`` over the M slots, masked ones included, with the
+    carry kept by ``torch.where`` where a slot is masked."""
     st = init_state(acc0, gyr0, ba, bg)
     X = (torch.zeros(acc0.shape[:-1] + (15, 18), dtype=acc0.dtype,
                      device=acc0.device) if exact_noise else None)
@@ -175,6 +178,75 @@ def preintegrate(dts, accs, gyrs, mask, acc0, gyr0, ba, bg, noise_d,
         if exact_noise:
             X = torch.where(m[..., None, None], X_new, X)
     return st
+
+
+def preintegrate_kernel(dts, accs, gyrs, mask, acc0, gyr0, ba, bg, noise_d,
+                        exact_noise: bool = True) -> PreintState:
+    """``preintegrate`` with the CUDA kernel (``csrc/preintegrate.cu``), on
+    the current stream, without synchronising; outputs come from
+    ``torch.empty``, so a CUDA graph's capture records the launch.  Takes
+    contiguous float32 or float64 CUDA tensors on one device (the mask
+    boolean), with the shapes ``preintegrate`` names and noise_d (18,);
+    raises on anything else, on a build failure and on a refused launch."""
+    floats = (dts, accs, gyrs, acc0, gyr0, ba, bg, noise_d)
+    if not all(t.is_cuda and t.device == dts.device for t in (*floats, mask)):
+        raise ValueError("preintegrate_kernel takes CUDA tensors on one device")
+    dtype = dts.dtype
+    if (dtype not in (torch.float32, torch.float64) or mask.dtype != torch.bool
+            or any(t.dtype != dtype for t in floats)):
+        raise ValueError(f"preintegrate_kernel takes float32 or float64 and a bool "
+                         f"mask, got {[t.dtype for t in (*floats, mask)]}")
+    batch, M = tuple(dts.shape[:-1]), dts.shape[-1]
+    want = (batch + (M, 3), batch + (M, 3), batch + (M,)) + (batch + (3,),) * 4 + ((18,),)
+    got = tuple(tuple(t.shape) for t in (accs, gyrs, mask, acc0, gyr0, ba, bg, noise_d))
+    if got != want:
+        raise ValueError(f"preintegrate_kernel shapes: dts {tuple(dts.shape)}, "
+                         f"the rest {got}, expected {want}")
+    if not all(t.is_contiguous() for t in (*floats, mask)):
+        raise ValueError("preintegrate_kernel takes contiguous tensors")
+    kw = dict(dtype=dtype, device=dts.device)
+    out = PreintState(*(torch.empty(batch + s, **kw) for s in (
+        (3,), (4,), (3,), (15, 15), (15, 15), (), (3,), (3,), (3,), (3,))))
+    B = math.prod(batch)
+    if B == 0:
+        return out
+    lib = _build.load()
+    fn = lib.preintegrate_f32 if dtype == torch.float32 else lib.preintegrate_f64
+    with torch.cuda.device(dts.device):
+        stream = torch.cuda.current_stream(dts.device).cuda_stream
+        rc = fn(*(t.data_ptr() for t in (dts, accs, gyrs, mask, acc0, gyr0, ba, bg,
+                                        noise_d, *out)),
+                B, M, int(exact_noise), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"preintegrate launch failed: CUDA error {rc} "
+                           f"({lib.gj_solve_error_string(rc).decode()})")
+    if torch.cuda.is_current_stream_capturing():
+        preintegrate_kernel.captured += 1   # recorded, not run: each replay launches it
+    else:
+        preintegrate_kernel.launches += 1
+    return out
+
+
+preintegrate_kernel.launches = 0   # launches on the card, a graph's replays included
+preintegrate_kernel.captured = 0   # launches recorded into CUDA graphs (solver/graph.py)
+
+
+def preintegrate(dts, accs, gyrs, mask, acc0, gyr0, ba, bg, noise_d,
+                 exact_noise: bool = True) -> PreintState:
+    """Integrate fixed-capacity buffers of IMU samples.
+
+    dts (..., M), accs (..., M, 3), gyrs (..., M, 3), mask (..., M) bool;
+    acc0/gyr0/ba/bg (..., 3).  Masked-out steps are no-ops (identity
+    carry); the mask need not be a prefix.  Equivalent to repeated
+    IntegrationBase::push_back (integration_base.h:30-52).  exact_noise:
+    propagate the shared-boundary-sample noise correlation
+    (config.imu_noise_model).  CUDA tensors go to the kernel, CPU tensors
+    to its plain version."""
+    if dts.is_cuda:
+        return preintegrate_kernel(dts, accs, gyrs, mask, acc0, gyr0, ba, bg, noise_d,
+                                   exact_noise)
+    return preintegrate_reference(dts, accs, gyrs, mask, acc0, gyr0, ba, bg, noise_d,
+                                  exact_noise)
 
 
 def evaluate(state: PreintState, g, Pi, Qi, Vi, Bai, Bgi,

@@ -111,6 +111,10 @@ def load() -> ctypes.CDLL:
         fn.restype = ci
     lib.gj_solve_work_elems.argtypes = [ci, ci]
     lib.gj_solve_work_elems.restype = ctypes.c_longlong
+    for name in ("preintegrate_f32", "preintegrate_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * 19 + [ci, ci, ci, vp]
+        fn.restype = ci
     lib.gj_solve_error_string.argtypes = [ci]
     lib.gj_solve_error_string.restype = ctypes.c_char_p
     for name, scalar in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):

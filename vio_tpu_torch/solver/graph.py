@@ -40,7 +40,8 @@ the tail on the capture stream, which creates the library handles and
 workspaces that must not be created inside a capture; the λ-attempts,
 and so the ``gj_solve`` kernel, run only in replays.
 ``ops.linsolve.gj_solve`` counts the launches a capture records
-(``gj_solve.captured``); each replay adds them to ``gj_solve.launches``.
+(``gj_solve.captured``); each replay adds them to ``gj_solve.launches``;
+so does ``imu.preintegrate_kernel``, once in every frame key's head.
 
 A ``ProgramGraph`` is the one-shot counterpart, for a jitted function
 with no loop in it (the tracker's programs, ``features/tracker.py``): a
@@ -74,7 +75,7 @@ from collections import Counter
 import numpy as np
 import torch
 
-from .. import trace
+from .. import imu, trace
 from ..ops import _build, linsolve, ransac
 from . import lm
 
@@ -100,7 +101,8 @@ STATS: Counter = Counter()
 
 # The kernel wrappers whose launches a graph holds: each counts the
 # launches it records into a capture (.captured) and its launches (.launches).
-COUNTED = (linsolve.gj_solve, ransac.sweep, ransac.refit, ransac.refit_best)
+COUNTED = (linsolve.gj_solve, ransac.sweep, ransac.refit, ransac.refit_best,
+           imu.preintegrate_kernel)
 
 _NP = {torch.float32: np.float32, torch.float64: np.float64,
        torch.bool: np.bool_, torch.int64: np.int64}
