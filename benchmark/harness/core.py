@@ -4,8 +4,9 @@
 files (``configs/<config>.json``, ``traffic/<traffic>.json``,
 ``workloads/<cell>.json``), checks the card, hands the run to the cell's
 entry driver (``drivers/<driver>.py``), which sets up, warms up and
-drives the window through ``Run``'s stamps, then judges the window's
-outputs against the plain reference (``reference/``), reads every metric
+drives the window through ``Run``'s stamps, then judges what the
+window's recorders sampled by the judges the workload names
+(``reference/judges/<judge>.py``, ``reference/check.py``), reads every metric
 the cell reports by its reader (``metrics/<name>.py``) and prints the
 result as the last line of standard output.
 """
@@ -80,11 +81,13 @@ class Run:
         self.spans: dict[str, float] = {}  # summed seconds of the harness's spans
         self.counts: dict[str, float] = {}  # counter deltas over the window
         self.telemetry: list[dict] = []    # the estimator's records of the window
-        self.records: list[dict] = []      # sampled frame steps (inputs, outputs)
+        # what each recorder of ``program`` sampled, by its name; a judge
+        # reads one recorder's records
+        self.recorded: dict[str, list] = {"frame_steps": []}
         self.trace_summary: dict | None = None
         self.memory_peak = 0
         self.traced_from = None            # the window's first frame in the traced slice
-        self.judged: list[dict] = []       # the judges' numbers of each sampled frame step
+        self.judged: list[tuple] = []      # (judge, its numbers of one record) for each record
         self.check_s = 0.0
         self._warm = 0
         self._last_logged = 0
@@ -137,7 +140,21 @@ class Run:
                          f"{self.seconds:g} s (ceiling_frames_per_s in "
                          f"workloads/{self.cell.name}.json)")
 
-    # -- what the readers use ------------------------------------------------
+    # -- what the judges and the readers use ----------------------------------
+    @property
+    def records(self) -> list:
+        """The sampled frame steps (inputs, outputs)."""
+        return self.recorded["frame_steps"]
+
+    @records.setter
+    def records(self, items: list) -> None:
+        self.recorded["frame_steps"] = items
+
+    @property
+    def reference_device(self) -> str:
+        """Where the plain references run: on the card where the run does."""
+        return "cpu" if self.device == "cpu" else "cuda"
+
     @property
     def setup_s(self) -> float:
         return self.window_start - self.t0
@@ -260,14 +277,14 @@ def report(out: dict) -> None:
     c = run.counts
     print(f"run: warm-up {run._warm} frames, setup {run.setup_s:.3f} s, window "
           f"{run.n_frames} frames, captures in the window {c.get('captures')}, "
-          f"check {run.check_s:.3f} s over {len(run.judged)} frame steps", file=sys.stderr)
+          f"check {run.check_s:.3f} s over {len(run.judged)} records", file=sys.stderr)
     print("captures (frame:total): " + " ".join(run.capture_log), file=sys.stderr)
     if run.trace_summary is not None:
         print(f"trace: reduced in {run.trace_summary['reduce_s']:.3f} s, card "
               f"{run.trace_summary['card']}, counters {run.trace_summary['counters']}",
               file=sys.stderr)
-    for j in run.judged:
-        print("frame step: " + " ".join(f"{k} {v!r}" for k, v in j.items()), file=sys.stderr)
+    for name, j in run.judged:
+        print(f"{name}: " + " ".join(f"{k} {v!r}" for k, v in j.items()), file=sys.stderr)
     for name, n in out["check"].items():
         print(f"check {name} {n['value']!r} limit {n['limit']!r}", file=sys.stderr)
     # the last gate before the result: whatever the run loaded, the

@@ -1,5 +1,7 @@
-"""What the harness takes from the program: its counters, and the frame
-step's inputs and outputs, recorded as the window drives it.
+"""What the harness takes from the program: its counters, and the inputs
+and outputs of the calls that the judges check, recorded as the window
+drives them.  A recorder's records live under its own name in
+``Run.recorded``, apart from every other recorder's.
 
 ``FrameSteps`` wraps the program's frame step (the card's graphed entry
 and the CPU's eager one) with a recorder that, while the window is open,
@@ -10,8 +12,16 @@ estimator builds them anew each frame.  A sampled call also keeps the
 prior that the next call is handed (``next_prior``): what the
 estimator's host chain made of this call's outputs.  The wrapper calls
 the program's function unchanged.
+
+``PoseGraphSolves`` wraps the loop closer's pose-graph solve the same
+way (``loop.posegraph.optimize``, the module attribute that
+``LoopCloser`` calls): while the window is open it offers every solve to
+a seed-drawn sample and keeps what the solve was handed and returned,
+unpadded, as host float64 copies.
 """
 from __future__ import annotations
+
+import inspect
 
 from benchmark.harness.core import Sampler
 
@@ -43,7 +53,7 @@ def _host(x):
 class FrameSteps:
     """Half of the ``k`` sampled frame steps are keyframe steps (the
     oldest frame marginalized), half the others, each drawn from its own
-    kind."""
+    kind.  Their records go under "frame_steps" in ``Run.recorded``."""
 
     def __init__(self, k: int, seed: int):
         self.sample = {True: Sampler(k - k // 2, seed), False: Sampler(k // 2, seed + 1)}
@@ -100,6 +110,64 @@ class FrameSteps:
     @property
     def records(self) -> list:
         return self.sample[True].items + self.sample[False].items
+
+
+class PoseGraphSolves:
+    """``k`` of the window's pose-graph solves, drawn from the seed.  A
+    record: ``inputs`` (Ps0, qs0, ei, ej, dP, dq, w: the edge weights, 1
+    where the call gave none; fix_first, max_iter) and ``outputs`` (Ps,
+    qs: the solved poses; iterations).  They go under "posegraph" in
+    ``Run.recorded``."""
+
+    def __init__(self, k: int, seed: int):
+        self.sample = Sampler(k, seed)
+        self.active = False
+        self._saved = None
+
+    def install(self) -> None:
+        import numpy as np
+        from vio_tpu_torch.loop import posegraph
+        optimize = self._saved = posegraph.optimize
+        sig = inspect.signature(optimize)
+
+        def optimize_rec(*args, **kw):
+            out = optimize(*args, **kw)
+            if not self.active:
+                return out
+
+            def make():
+                a = sig.bind(*args, **kw)
+                a.apply_defaults()
+                a = a.arguments
+                w = a["edge_weights"]
+                inp = dict(Ps0=_f64(a["Ps0"]), qs0=_f64(a["qs0"]),
+                           ei=np.array(a["edges_i"], np.int64),
+                           ej=np.array(a["edges_j"], np.int64),
+                           dP=_f64(a["edges_dP"]), dq=_f64(a["edges_dq"]),
+                           w=np.ones(len(a["edges_i"])) if w is None else _f64(w),
+                           fix_first=bool(a["fix_first"]), max_iter=int(a["max_iter"]))
+                return dict(inputs=inp, outputs=dict(Ps=_f64(out[0]), qs=_f64(out[1]),
+                                                     iterations=out[2].get("iterations")))
+            self.sample.offer(make)
+            return out
+
+        posegraph.optimize = optimize_rec
+
+    def uninstall(self) -> None:
+        if self._saved is not None:
+            from vio_tpu_torch.loop import posegraph
+            posegraph.optimize = self._saved
+            self._saved = None
+
+    @property
+    def records(self) -> list:
+        return self.sample.items
+
+
+def _f64(x):
+    """A host float64 copy."""
+    import numpy as np
+    return np.array(_host(x), dtype=np.float64)
 
 
 def release() -> None:

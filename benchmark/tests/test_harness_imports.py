@@ -38,6 +38,9 @@ def test_no_module_imports_jax():
 def test_reference_imports_nothing_of_the_program():
     code = ("import json, sys\n"
             "import benchmark.reference.window, benchmark.reference.prior\n"
+            "import benchmark.reference.posegraph, benchmark.reference.check\n"
+            "import benchmark.reference.judges.window, benchmark.reference.judges.prior\n"
+            "import benchmark.reference.judges.posegraph\n"
             "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
