@@ -16,7 +16,8 @@ them.  Phases, each of which raises on failure:
    the faster of two library routes (``torch.linalg.solve``,
    ``torch.linalg.cholesky`` + ``torch.cholesky_solve``) with CUDA events,
    and computes the roofline bound from the shapes.  The library call is
-   a yardstick only: nothing in the package calls it;
+   a yardstick here: the package calls the Cholesky route only for the
+   pose graph's damped solve (phase 25);
 4. ill-conditioned case: a seeded SPD system at P = 171 with eigenvalues
    spread over 1e5 and the estimator's damping λ = 1e-5·max|diag|, kernel
    against plain by backward error and by |Δx|;
@@ -106,23 +107,27 @@ them.  Phases, each of which raises on failure:
    the producer's busy time during which the consumer was busy too;
 10. loop closing: run_sim over the simulator's 600-frame closed circuit at
    tests/test_loop_integration.py's configuration (noisy IMU, priors
-   underestimated by 3) on the default device, a LoopCloser fed from
-   on_frame with one fixed random descriptor per landmark: BoW retrieval
-   → mutual-Hamming matching → PnP → SE3 pose graph.  Estimator and
-   closer run in float64: in float32 the raw APE misses that test's
-   0.1583 m bound, on the card (0.66 m) as in the JAX package with 64-bit
-   mode off (0.27 m on the CPU); scripts/torch_loop_path_precision.py
-   measures both.  Held to
-   that test's bounds (raw APE, at least one loop, edge errors against
-   ground truth, corrected APE, bounded drift); then
+   underestimated by 3) on the default device, loop closing on through
+   the estimator's flag (``loop_closure: 1``, ``loop_min_gap`` 80), the
+   stream carrying one fixed random descriptor per landmark: BoW retrieval
+   → mutual-Hamming matching → PnP → SE3 pose graph, inside
+   ``process_image``; the published poses are the drift-corrected ones.
+   Estimator and closer run in float64: in float32 the raw APE misses that
+   test's 0.1583 m bound, on the card (0.66 m) as in the JAX package with
+   64-bit mode off (0.27 m on the CPU); scripts/torch_loop_path_precision.py
+   measures both.  Held to that test's bounds (raw APE of the window's
+   odometry, at least one loop, edge errors against ground truth,
+   corrected APE, bounded drift, the last published pose the
+   drift-corrected one); then
    Estimator.apply_live_correction with the closer's drift,
    LoopCloser.rebase, and the circuit's last frame solved with no
    failure.  The closer's pose-graph solves run on the card from captured
-   CUDA graphs (``posegraph.optimize_graphed``, ``gj_solve`` inside).
+   CUDA graphs (``posegraph.optimize_graphed``, the library's Cholesky,
+   ``linsolve.cholesky_solve``, inside).
    Prints milliseconds per add_keyframe and per pose-graph solve (median
    and max), the pose graph's keys, graphs captured and seconds
-   capturing, its attempts and host reads a solve and its ``gj_solve``
-   launches.  Also ``orb.describe`` on one rendered frame and
+   capturing, its attempts and host reads a solve and its
+   ``cholesky_solve`` launches.  Also ``orb.describe`` on one rendered frame and
    ``orb.hamming_matrix``, card against CPU.
 11. global BA on one card: ``global_ba.solve`` at bench.py's scale-out
    configuration (100 keyframes, 400 landmarks, 8 observations each: P =
@@ -255,11 +260,15 @@ them.  Phases, each of which raises on failure:
    PG_TWIN_DP, chi² within PG_TWIN_CHI2 relative) and against the CPU
    route (the same iterations, P and q within PG_CPU_TOL); on the CPU,
    padded against unpadded (the buckets set to 1: the same iterations,
-   P and q within PG_PAD_TOL).  Then ``gj_solve`` at the pose graph's
-   sizes P ∈ POSEGRAPH_P in float32 and float64 against its plain
-   version on the card, by backward error (≤ P·eps and ≤ 10× the plain
-   version's), with the kernel's, the plain version's and the library
-   call's ms and the bound.
+   P and q within PG_PAD_TOL); each graphed solve launches one
+   ``linsolve.cholesky_solve`` an attempt and no ``gj_solve``.  Then
+   ``gj_solve``
+   at the pose graph's sizes P ∈ POSEGRAPH_P in float32 and float64
+   against its plain version on the card, by backward error (≤ P·eps and
+   ≤ 10× the plain version's), with the kernel's, the plain version's and
+   the library call's ms and the bound, and the library route
+   (``linsolve.cholesky_solve``) at the same sizes by backward error
+   (≤ P·eps).
 
 Times are printed and recorded, never asserted.  The script's own time is
 printed after the last phase.  The line before the last
@@ -346,8 +355,8 @@ WELL_POSED = 1e-2
 N_LOOP_FRAMES = 600
 LOOP_DTYPE = torch.float64     # phase 10's estimator and closer; see above
 # phase 25: the drifting circuits' sizes (189: the loop circuit's last), and
-# gj_solve's sizes on the pose graph's path (6 x 192 padded poses) and up
-# to its ceiling.  The graphs and the eager twin run the same kernels in
+# gj_solve's blocked sizes up to its ceiling, each also solved by the pose
+# graph's route (the library's Cholesky).  The graphs and the eager twin run the same kernels in
 # the same order (index_add_'s atomics may order a sum otherwise); the CPU
 # route sums H on the host and solves it by LU.
 POSEGRAPH_N = (40, 189, 400)
@@ -834,22 +843,17 @@ def loop_closing_path(device, tag: str, dtype=None) -> dict:
     launches, those of the pose graph among them, and the closer."""
     from vio_tpu_torch import metrics, runner, sim
     from vio_tpu_torch.config import sim_config
-    from vio_tpu_torch.estimator import MARGIN_OLD
     from vio_tpu_torch.loop import closer as closer_mod
     from vio_tpu_torch.ops import linsolve
     from vio_tpu_torch.solver import graph
     from vio_tpu_torch.utils import lie_np
 
-    data = sim.generate(noise=True, pixel_noise=0.0)
-    cfg = sim_config(acc_n=0.2687 / 3.0, gyr_n=0.2121 / 3.0)
-    closer = closer_mod.LoopCloser(R_ic=cfg.R_ic, t_ic=cfg.t_ic, min_gap=80,
-                                   train_after=25, loop_weight=5.0,
-                                   focal=cfg.focal_length, device=device, dtype=dtype)
     # one fixed random 256-bit descriptor per landmark: what a distinctive
     # texture patch would give (tests/test_loop_integration.py)
-    desc = np.random.default_rng(12345).integers(
-        0, 2 ** 32, size=(len(data.landmarks), 8), dtype=np.uint32)
-    kf_ms, pg_ms = [], []
+    data = sim.generate(noise=True, pixel_noise=0.0, descriptor_seed=12345)
+    cfg = sim_config(acc_n=0.2687 / 3.0, gyr_n=0.2121 / 3.0, loop_closure=1,
+                     loop_min_gap=80, loop_train_after=25)
+    kf_ms, pg_ms, raw = [], [], []
 
     def synchronised(fn, log):
         def timed(*args, **kwargs):
@@ -861,33 +865,30 @@ def loop_closing_path(device, tag: str, dtype=None) -> dict:
             return out
         return timed
 
-    add_keyframe = synchronised(closer.add_keyframe, kf_ms)
+    add_keyframe = closer_mod.LoopCloser.add_keyframe
     optimize = closer_mod.posegraph.optimize
     pg = dict(stats=[], launches=0, captures=0, capture_s=0.0)
 
     def counted_optimize(*args, **kwargs):
-        """The pose graph's solves: their stats, their gj_solve launches,
-        the graphs they captured and the seconds capturing."""
-        n0, c0, s0 = (linsolve.gj_solve.launches, graph.STATS["captures"],
+        """The pose graph's solves: their stats, their cholesky_solve
+        launches, the graphs they captured and the seconds capturing."""
+        n0, c0, s0 = (linsolve.cholesky_solve.launches, graph.STATS["captures"],
                       graph.STATS["capture_s"])
         out = optimize(*args, **kwargs)
         pg["stats"].append(out[2])
-        pg["launches"] += linsolve.gj_solve.launches - n0
+        pg["launches"] += linsolve.cholesky_solve.launches - n0
         pg["captures"] += graph.STATS["captures"] - c0
         pg["capture_s"] += graph.STATS["capture_s"] - s0
         return out
 
     def on_frame(est, t, feats):
-        if not est.initialized or est.marg_flag != MARGIN_OLD:
-            return
-        ids, xy, pts_cam = est.current_landmarks()
-        if len(ids) < 10:
-            return
-        tt, p, R = est.latest_pose()
-        add_keyframe(tt, p, R, desc[ids], xy, pts_cam=pts_cam, pts_xy=xy)
+        """The window's own (odometry) pose, beside the published one."""
+        if est.initialized:
+            raw.append((est.Ps[est.frame_count].copy(), est.Rs[est.frame_count].copy()))
 
     n = N_LOOP_FRAMES - 1          # the last frame is solved after the rebase
     closer_mod.posegraph.optimize = synchronised(counted_optimize, pg_ms)
+    closer_mod.LoopCloser.add_keyframe = synchronised(add_keyframe, kf_ms)
     linsolve.gj_solve.launches = 0
     before = dict(graph.STATS)
     torch.cuda.synchronize()
@@ -897,9 +898,14 @@ def loop_closing_path(device, tag: str, dtype=None) -> dict:
                                    dtype=dtype)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        closer = est.closer
+        published = traj["p"]
+        # the window's odometry, which the closer corrects
+        traj["p"], traj["R"] = (np.stack(x) for x in zip(*raw))
         Ps_c, _ = closer.correct(traj["t"], traj["p"], traj["R"])
     finally:
         closer_mod.posegraph.optimize = optimize
+        closer_mod.LoopCloser.add_keyframe = add_keyframe
 
     if not est.initialized or est.failure_count != 0:
         raise AssertionError(f"loop path: initialized {est.initialized}, "
@@ -923,6 +929,8 @@ def loop_closing_path(device, tag: str, dtype=None) -> dict:
         aerr.append(np.degrees(np.arccos(np.clip(cos, -1, 1))))
     p_c, R_c = closer.live_correct(traj["p"][-1], traj["R"][-1])
     drift = float(np.linalg.norm(closer.drift_t))
+    if not np.array_equal(published[-1], p_c):
+        raise AssertionError("loop path: the published pose is not the drift-corrected one")
     print(f"loop path in {str(est.dtype)[6:]}: {n} frames, {len(traj['t'])} poses, "
           f"{len(closer.kfs)} keyframes, {len(closer.loops)} loops accepted {tag}")
     print(f"loop path APE rmse raw {ape_raw:.6f} m, pose-graph corrected {ape_corr:.6f} m, "
@@ -950,10 +958,11 @@ def loop_closing_path(device, tag: str, dtype=None) -> dict:
           f"{pg['capture_s']:.2f} s; a solve {sum(st['attempts'] for st in pg['stats']) / n_pg:.2f} "
           f"attempts, {sum(st['reads'] for st in pg['stats']) / n_pg:.2f} reads, "
           f"{sum(st['iterations'] for st in pg['stats']) / n_pg:.2f} iterations; "
-          f"gj_solve launches {pg['launches']} {tag}")
+          f"cholesky_solve launches {pg['launches']} {tag}")
     if None in keys or pg["launches"] < sum(st["iterations"] for st in pg["stats"]):
         raise AssertionError(f"loop path: the pose graph did not run from its graphs "
-                             f"through gj_solve: {len(keys)} keys, {pg['launches']} launches")
+                             f"through cholesky_solve: {len(keys)} keys, "
+                             f"{pg['launches']} launches")
     if not (np.median(perr) < 0.3 and np.percentile(perr, 90) < 1.0
             and np.median(aerr) < 1.0 and np.percentile(aerr, 90) < 2.0):
         raise AssertionError("loop path: loop edges are not the ground truth's")
@@ -972,9 +981,10 @@ def loop_closing_path(device, tag: str, dtype=None) -> dict:
     t_prev, t = data.cam_t[n - 1], data.cam_t[n]
     runner.feed_interval(est, data.imu_t, data.acc, data.gyr, t_prev, t,
                          int(np.searchsorted(data.imu_t, t_prev, side="right")))
-    est.process_image({int(lid): (np.array([*data.obs_xy[n, lid], 1.0]),
-                                  data.obs_uv[n, lid], np.zeros(2))
-                       for lid in np.where(data.obs_valid[n])[0]}, t)
+    lids = [int(lid) for lid in np.where(data.obs_valid[n])[0]]
+    est.process_image({lid: (np.array([*data.obs_xy[n, lid], 1.0]), data.obs_uv[n, lid],
+                             np.zeros(2)) for lid in lids}, t,
+                      {lid: data.descriptors[lid] for lid in lids})
     torch.cuda.synchronize()
     launches = linsolve.gj_solve.launches
     yaw = float(lie_np.mat_to_ypr_np(Ry)[0])
@@ -983,7 +993,7 @@ def loop_closing_path(device, tag: str, dtype=None) -> dict:
           f"{est.failure_count} {tag}")
     if est.frame_solved != solved + 1 or est.failure_count != 0:
         raise AssertionError("loop path: the frame after the live correction did not solve")
-    return dict(launches=launches, posegraph_launches=pg["launches"], closer=closer)
+    return dict(launches=launches, closer=closer)
 
 
 def posegraph_problems(closer) -> list:
@@ -1024,15 +1034,19 @@ def posegraph_on_card(closer, tag: str) -> dict:
         c0, s0 = graph.STATS["captures"], graph.STATS["capture_s"]
         _, first_ms = timed(posegraph.optimize, "cuda")
         captures, capture_s = graph.STATS["captures"] - c0, graph.STATS["capture_s"] - s0
+        g0, h0 = linsolve.gj_solve.launches, linsolve.cholesky_solve.launches
         (Pg, qg, sg), graphed_ms = timed(posegraph.optimize, "cuda")
+        launched = dict(gj_solve=linsolve.gj_solve.launches - g0,
+                        cholesky=linsolve.cholesky_solve.launches - h0)
         (Pe, qe, se), eager_ms = timed(posegraph.optimize_eager, "cuda")
         (Pc, qc, sc), cpu_ms = timed(posegraph.optimize, "cpu")
-        buckets = posegraph.POSE_BUCKET, posegraph.EDGE_BUCKET
+        buckets = posegraph.POSE_BUCKET, posegraph.EDGE_BUCKET, posegraph.EDGES_PER_POSE
         posegraph.POSE_BUCKET = posegraph.EDGE_BUCKET = 1
+        posegraph.EDGES_PER_POSE = 0
         try:
             Pu, qu, su = posegraph.optimize(*args, device="cpu", **kw)
         finally:
-            posegraph.POSE_BUCKET, posegraph.EDGE_BUCKET = buckets
+            posegraph.POSE_BUCKET, posegraph.EDGE_BUCKET, posegraph.EDGES_PER_POSE = buckets
         d_eager = float(np.abs(Pg - Pe).max())
         d_chi = abs(sg["chi2"] - se["chi2"]) / abs(se["chi2"])
         d_cpu = max(float(np.abs(Pg - Pc).max()), float(np.abs(qg - qc).max()))
@@ -1044,7 +1058,10 @@ def posegraph_on_card(closer, tag: str) -> dict:
               f"captured in {capture_s:.3f} s), eager twin {eager_ms:.3f} ms, CPU route "
               f"{cpu_ms:.3f} ms; |dP| against eager {d_eager:.3e} m, chi2 {d_chi:.3e} "
               f"relative; against the CPU {d_cpu:.3e}; CPU padded against unpadded "
-              f"{d_pad:.3e} {tag}")
+              f"{d_pad:.3e}; damped solves launched {launched} {tag}")
+        if launched != dict(gj_solve=0, cholesky=sg["attempts"]):
+            raise AssertionError(f"pose graph {label}: {sg['attempts']} attempts launched "
+                                 f"{launched}")
         if not (sg["iterations"] == se["iterations"] and d_eager <= PG_TWIN_DP
                 and d_chi <= PG_TWIN_CHI2):
             raise AssertionError(f"pose graph {label}: graphed against eager: iterations "
@@ -1083,6 +1100,13 @@ def posegraph_on_card(closer, tag: str) -> dict:
                   f"{eta:.3e} plain {eta_ref:.3e} (bound {P * eps:.3e}), max|x-x_ref| "
                   f"{err:.3e}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
                   f"{library_ms:.4f} ms bound {least_ms:.3e} ms ({bound_by}) {tag}")
+            x_chol = linsolve.cholesky_solve(A, b)
+            eta_chol = backward_error(A, b, x_chol)
+            print(f"cholesky_solve {str(dtype)[6:]} P={P}: backward error {eta_chol:.3e} "
+                  f"{tag}")
+            if not eta_chol <= P * eps:
+                raise AssertionError(f"cholesky_solve P={P} {dtype}: backward error "
+                                     f"{eta_chol:.3e} (bound {P * eps:.3e})")
             rec[(dtype, P)] = dict(err=err, backward_err=eta, ms=ms, plain_ms=plain_ms,
                                    library_ms=library_ms, bound_ms=least_ms, bound_by=bound_by)
     return rec
@@ -3037,7 +3061,6 @@ def main() -> int:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "launches_by_path": by_path,
-        "posegraph_launches_in_loop_path": loop["posegraph_launches"],
         "float64": {"max_abs_err": main64["err"], "ms": main64["ms"],
                     "plain_ms": main64["plain_ms"], "bound_ms": main64["bound_ms"],
                     "bound_by": main64["bound_by"],

@@ -1,7 +1,8 @@
 """Loop closing around a run of the port: ``Estimator.apply_live_correction``
 against ``vio_tpu``'s on the same window, and (slow) the simulator's whole
-closed circuit through ``run_sim`` with a ``LoopCloser`` fed from
-``on_frame``, at tests/test_loop_integration.py's bounds.  CPU, float64."""
+closed circuit through ``run_sim`` with loop closing on (the estimator's
+``loop_closure`` flag and its closer), at tests/test_loop_integration.py's
+bounds.  CPU, float64."""
 import numpy as np
 import pytest
 import torch
@@ -10,8 +11,6 @@ from test_torch_checkpoint import continue_frames
 from vio_tpu import runner as jrunner
 from vio_tpu_torch import metrics, runner, sim
 from vio_tpu_torch.config import sim_config
-from vio_tpu_torch.estimator import MARGIN_OLD
-from vio_tpu_torch.loop.closer import LoopCloser
 from vio_tpu_torch.utils import lie_np
 
 torch.set_num_threads(1)
@@ -82,46 +81,29 @@ def test_apply_live_correction_matches_jax_and_the_next_frame_solves():
     assert np.abs(ps_t - ps_j).max() < 1e-6
 
 
-_RNG = np.random.default_rng(12345)
-_DESC_CACHE: dict = {}
-
-
-def oracle_desc(ids):
-    """A fixed random 256-bit descriptor for each simulator landmark, as
-    tests/test_loop_integration.py has it."""
-    out = np.zeros((len(ids), 8), np.uint32)
-    for n, i in enumerate(ids):
-        d = _DESC_CACHE.get(int(i))
-        if d is None:
-            d = _RNG.integers(0, 2 ** 32, size=8, dtype=np.uint32)
-            _DESC_CACHE[int(i)] = d
-        out[n] = d
-    return out
-
-
 @pytest.mark.slow
 def test_loop_detection_and_metric_edge_accuracy():
     """tests/test_loop_integration.py's run in the port: the 600-frame
-    closed circuit with priors underestimated by 3, a LoopCloser fed from
-    on_frame, at the same bounds; then the loop's feedback into the live
-    window and one more solved frame."""
-    data = sim.generate(noise=True, pixel_noise=0.0)
-    cfg = sim_config(acc_n=0.2687 / 3.0, gyr_n=0.2121 / 3.0)
-    closer = LoopCloser(R_ic=cfg.R_ic, t_ic=cfg.t_ic, min_gap=80, train_after=25,
-                        loop_weight=5.0, focal=cfg.focal_length, device="cpu")
+    closed circuit with priors underestimated by 3, one fixed random
+    descriptor per landmark, loop closing on (``loop_min_gap`` 80), at the
+    same bounds on the window's odometry; the published poses are the
+    drift-corrected ones; then the loop's feedback into the live window
+    and one more solved frame."""
+    data = sim.generate(noise=True, pixel_noise=0.0, descriptor_seed=12345)
+    cfg = sim_config(acc_n=0.2687 / 3.0, gyr_n=0.2121 / 3.0, loop_closure=1,
+                     loop_min_gap=80, loop_train_after=25)
+    raw = []
 
     def on_frame(est, t, feats):
-        if not est.initialized or est.marg_flag != MARGIN_OLD:
-            return
-        ids, xy, pts_cam = est.current_landmarks()
-        if len(ids) < 10:
-            return
-        tt, p, R = est.latest_pose()
-        closer.add_keyframe(tt, p, R, oracle_desc(ids), xy, pts_cam=pts_cam, pts_xy=xy)
+        if est.initialized:
+            raw.append((est.Ps[est.frame_count].copy(), est.Rs[est.frame_count].copy()))
 
     n = len(data.cam_t) - 1          # the last frame is kept for after the rebase
     est, traj = runner.run_sim(data, cfg, n_frames=n, on_frame=on_frame, device="cpu")
     assert est.initialized and est.failure_count == 0
+    closer = est.closer
+    published = traj["p"]
+    traj["p"], traj["R"] = (np.stack(x) for x in zip(*raw))
     gt_p, _ = runner.sim_ground_truth_at(data, traj["t"])
     ape_raw = metrics.ape_rmse(traj["p"], gt_p)
     assert ape_raw["rmse"] < 0.1583, ape_raw
@@ -147,6 +129,7 @@ def test_loop_detection_and_metric_edge_accuracy():
     ape_corr = metrics.ape_rmse(Ps_c, gt_p)
     assert ape_corr["rmse"] < max(2.0 * ape_raw["rmse"], 0.30), (ape_raw, ape_corr)
     p_c, R_c = closer.live_correct(traj["p"][-1], traj["R"][-1])
+    np.testing.assert_array_equal(published[-1], p_c)
     assert np.all(np.isfinite(p_c)) and np.all(np.isfinite(R_c))
     assert np.linalg.norm(closer.drift_t) < 2.0
 

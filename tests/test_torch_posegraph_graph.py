@@ -12,10 +12,14 @@ head, chunk and tail, run eagerly with a host read of the condition
 between them as a replay has, make no host read and equal the eager
 route to the bit at any chunk; an attempt after the loop has ended
 changes no bit; the keys hold what is static and are shared within a
-bucket; the graphed route refuses the CPU and a system above
-``gj_solve``'s ceiling; ``spd_solve`` still sends P > 1024 to PCG.  The
-``gpu`` tests run the graphs against the eager twin and the CPU route,
-and the kernel at its new ceiling, on the card; they skip here."""
+bucket, and a closer's graph, at most two edges a pose, is keyed by its
+poses alone; ``prepare`` captures nothing on the CPU; the graphed route
+refuses the CPU; the card's damped solve (the
+library's Cholesky) and the CPU's are held to each other and to the plain
+pose graph of benchmark/reference/posegraph.py, and no size is refused;
+``spd_solve`` still sends P > 1024 to PCG.  The ``gpu`` tests run the
+graphs against the eager twin and the CPU route, at 700 and 1,000 poses
+too, and the kernel at its ceiling, on the card; they skip here."""
 import re
 from pathlib import Path
 
@@ -170,7 +174,9 @@ def test_padded_equals_unpadded(monkeypatch, weighted):
     assert posegraph.padded(*args)[0].shape[0] == 64
     monkeypatch.setattr(posegraph, "POSE_BUCKET", 1)
     monkeypatch.setattr(posegraph, "EDGE_BUCKET", 1)
+    monkeypatch.setattr(posegraph, "EDGES_PER_POSE", 0)
     assert posegraph.padded(*args)[0].shape[0] == 40
+    assert posegraph.padded(*args)[2].shape[0] == len(args[2])
     Pu, qu, stu = posegraph.optimize(*args, edge_weights=w, max_iter=40, **CPU)
     assert stp["iterations"] == stu["iterations"] >= 2
     np.testing.assert_allclose(Pp, Pu, rtol=0, atol=1e-10)
@@ -193,7 +199,7 @@ def test_graph_functions_are_the_eager_route(eager_graphs, chunk):
     assert stg["log"] == ste["log"] and stg["chi2"] == ste["chi2"]
     assert stg["iterations"] == ste["iterations"]
     assert stg["attempts"] == chunk * stg["reads"] == chunk * -(-ste["attempts"] // chunk)
-    assert stg["key"] == posegraph.graph_key(64, 64, torch.float64, True, 40,
+    assert stg["key"] == posegraph.graph_key(64, 128, torch.float64, True, 40,
                                              posegraph.STOP_DELTA_CHI, "cpu")
 
 
@@ -219,7 +225,7 @@ def test_attempts_after_the_end_change_no_bit():
 
 
 def test_keys_are_shared_within_a_bucket():
-    """Circuits of 40 and 60 poses share a key (64 padded poses, 64
+    """Circuits of 40 and 60 poses share a key (64 padded poses, 128
     padded edges); one of 70 does not; nor do other static arguments."""
     def key(n, **kw):
         args, w = _circuit_args(n)
@@ -236,21 +242,106 @@ def test_keys_are_shared_within_a_bucket():
         posegraph.optimize_graphed(*_square(), **CPU)
 
 
-def test_the_card_refuses_a_graph_above_the_kernels_ceiling():
-    """6 × 672 = 4032 unknowns is the largest padded system gj_solve
-    takes; 704 padded poses raise, naming the ceiling, on a CUDA device
-    (the check runs before any device work) and not on the CPU."""
-    cuda = torch.device("cuda", 0)
-    for n, ok in ((672, True), (673, False)):
-        arrays = posegraph.padded(np.zeros((n, 3)), np.tile([0.0, 0, 0, 1], (n, 1)),
-                                  np.arange(n - 1), np.arange(1, n), np.zeros((n - 1, 3)),
-                                  np.tile([0.0, 0, 0, 1], (n - 1, 1)))
-        posegraph._check_size(arrays, torch.device("cpu"))
-        if ok:
-            posegraph._check_size(arrays, cuda)
-        else:
-            with pytest.raises(ValueError, match="KERNEL_MAX_P = 4096"):
-                posegraph._check_size(arrays, cuda)
+@pytest.mark.parametrize("n", [40, 64, 65])
+def test_a_closers_graph_is_keyed_by_its_poses_alone(n):
+    """A graph of n poses with its n - 1 odometry edges and any number of
+    loops up to one a pose pads its edges to EDGES_PER_POSE (2) times its
+    padded poses: one key from no loop to a loop on every pose."""
+    n_pad = posegraph._bucket(n, posegraph.POSE_BUCKET)
+    shapes = set()
+    for loops in (0, 1, n // 2, n):
+        chain = np.arange(n - 1)
+        ei = np.concatenate([chain, np.zeros(loops, np.int64)])
+        ej = np.concatenate([chain + 1, np.full(loops, n - 1)])
+        q = np.tile([0.0, 0.0, 0.0, 1.0], (len(ei), 1))
+        a = posegraph.padded(np.zeros((n, 3)), np.tile([0.0, 0.0, 0.0, 1.0], (n, 1)), ei, ej,
+                             np.zeros((len(ei), 3)), q)
+        assert a[6][:len(ei)].all() and not a[6][len(ei):].any()
+        shapes.add((len(a[0]), len(a[2])))
+    assert shapes == {(n_pad, 2 * n_pad)}
+
+
+def test_prepare_captures_nothing_on_the_cpu():
+    """``prepare`` is the card's: on the CPU it captures no graph, solves
+    nothing and counts nothing."""
+    s0, c0 = dict(posegraph.STATS), graph.STATS["captures"]
+    assert posegraph.prepare(100, max_iter=40, **CPU) == 0
+    assert dict(posegraph.STATS) == s0 and graph.STATS["captures"] == c0
+
+
+def test_the_card_takes_a_graph_of_any_size():
+    """672 and 673 poses, padded to 672 and 704 (4032 and 4224 unknowns,
+    on both sides of gj_solve's ceiling, which once bounded the pose
+    graph): nothing checks a graph's size, and the card's damped solve,
+    the library's Cholesky, solves the larger graph's damped normal
+    equations as the CPU's ``torch.linalg.solve`` does."""
+    assert not hasattr(posegraph, "_check_size")
+    assert not hasattr(linsolve, "damped_route")
+    for n, n_pad in ((672, 672), (673, 704)):
+        args, w = _circuit_args(n)
+        arrays = posegraph.padded(*args, w, True)
+        assert 6 * len(arrays[0]) == 6 * n_pad
+    assert 6 * n_pad > linsolve.KERNEL_MAX_P
+    g = posegraph.PoseGraph(*(torch.as_tensor(a, dtype=graph.spec_of(a, torch.float64)[1])
+                              for a in arrays))
+    q, x0, _ = posegraph.problem(g, 40)
+    H, b, _ = q.normal_fn(x0)
+    lam = 1e-5 * torch.diagonal(H).abs().max()
+    x_cpu = generic.damped_solve(H, b, lam)
+    A = H.clone()
+    A.diagonal().add_(lam)
+    x_card = linsolve.cholesky_solve(A, b)
+    assert torch.isfinite(x_card).all() and float(x_cpu.abs().max()) > 0
+    assert float((x_card - x_cpu).abs().max()) <= 1e-9 * float(x_cpu.abs().max())
+
+
+@pytest.mark.parametrize("n", [40, 70])
+def test_the_cards_solve_and_the_cpus_solve_the_same_graph_as_the_plain_reference(
+        monkeypatch, n):
+    """The card's damped solve (``linsolve.cholesky_solve``, run on the
+    CPU as it is) in place of the CPU's ``torch.linalg.solve``: the same
+    iterations, the poses within 1e-10 of each other, and each judged
+    sound by the benchmark's plain pose graph
+    (benchmark/reference/posegraph.py) at the cell's limits' order: cost
+    left and pose gap far under 1e-6, pose 0 held."""
+    import sys
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmark.reference import posegraph as ref
+    args, w = _circuit_args(n)
+    out = {"linalg.solve": posegraph.optimize(*args, edge_weights=w, max_iter=40, **CPU)}
+    calls = []
+
+    def card(A, b):
+        calls.append(A.shape[0])
+        return linsolve.cholesky_solve(A, b)
+
+    monkeypatch.setattr(torch.linalg, "solve", card)
+    out["cholesky"] = posegraph.optimize(*args, edge_weights=w, max_iter=40, **CPU)
+    monkeypatch.undo()
+    assert calls and set(calls) == {6 * posegraph._bucket(n, posegraph.POSE_BUCKET)}
+    (Pl, ql, sl), (Pc, qc, sc) = out.values()
+    assert sl["iterations"] == sc["iterations"] > 0 and len(calls) == sc["attempts"]
+    assert np.abs(Pl - Pc).max() <= 1e-10 and np.abs(ql - qc).max() <= 1e-10
+    for Ps, qs, st in out.values():
+        rec = dict(inputs=dict(Ps0=args[0], qs0=args[1], ei=args[2], ej=args[3], dP=args[4],
+                               dq=args[5], w=np.asarray(w), fix_first=True, max_iter=40),
+                   outputs=dict(Ps=Ps, qs=qs, iterations=st["iterations"]))
+        j = ref.judge(rec)
+        assert j["cost_gap_in"] > 0
+        assert abs(j["cost_gap_out"] / j["cost_gap_in"]) < 1e-10
+        assert j["pose_gap"] < 1e-9 and j["fix_gap"] < 1e-15
+
+
+def test_the_pose_graph_counts_its_solves_attempts_and_sizes():
+    """``posegraph.STATS`` and ``ATTEMPTS_BY_P`` gain each solve's
+    unpadded poses, attempts and iterations, by its padded P."""
+    args, w = _circuit_args(40)
+    s0, p0 = dict(posegraph.STATS), posegraph.ATTEMPTS_BY_P[384]
+    _, _, st = posegraph.optimize(*args, edge_weights=w, max_iter=40, **CPU)
+    gained = {k: posegraph.STATS[k] - s0.get(k, 0) for k in posegraph.STATS}
+    assert gained["solves"] == 1 and gained["poses"] == 40
+    assert gained["attempts"] == st["attempts"] and gained["iterations"] == st["iterations"]
+    assert posegraph.ATTEMPTS_BY_P[384] - p0 == st["attempts"]
 
 
 def test_spd_solve_keeps_its_pcg_switch_and_the_kernel_its_new_ceiling(monkeypatch):
@@ -292,6 +383,44 @@ def test_gj_solve_takes_its_new_ceiling_on_the_card():
         big = torch.eye(P + 1, dtype=dtype, device="cuda")
         with pytest.raises(ValueError, match="shapes"):
             linsolve.gj_solve(big, big[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [700, 1000])
+def test_the_card_solves_pose_graphs_past_the_kernels_sizes(n):
+    """float64, drifting circuits of 700 and 1,000 poses (P = 4224 and
+    6144 padded, once above gj_solve's ceiling): the graphs take the
+    library's Cholesky, and end as the eager twin and the CPU do."""
+    _card()
+    args, w = _circuit_args(n)
+    kw = dict(edge_weights=w, max_iter=40, dtype=torch.float64)
+    c0 = linsolve.cholesky_solve.launches
+    Pg, qg, stg = posegraph.optimize(*args, device="cuda", **kw)
+    assert linsolve.cholesky_solve.launches - c0 == stg["attempts"]
+    Pe, qe, ste = posegraph.optimize_eager(*args, device="cuda", **kw)
+    Pc, qc, stc = posegraph.optimize(*args, device="cpu", **kw)
+    assert stg["iterations"] == ste["iterations"] == stc["iterations"]
+    assert np.abs(Pg - Pe).max() <= 1e-9
+    assert np.abs(Pg - Pc).max() <= 1e-8 and np.abs(qg - qc).max() <= 1e-8
+
+
+@pytest.mark.gpu
+def test_prepare_captures_the_key_that_a_later_solve_replays():
+    """float64, a circuit of 150 poses: ``prepare(150)`` captures the
+    three graphs of its key and counts them, not a solve; the solve after
+    it captures nothing, and a second ``prepare`` captures nothing."""
+    _card()
+    args, w = _circuit_args(150)
+    kw = dict(max_iter=40, device="cuda", dtype=torch.float64)
+    s0 = dict(posegraph.STATS)
+    made = posegraph.prepare(150, **kw)
+    assert made in (0, 3)
+    assert posegraph.STATS["captures"] - s0.get("captures", 0) == made
+    assert posegraph.STATS["solves"] == s0.get("solves", 0)
+    c0 = graph.STATS["captures"]
+    _, _, st = posegraph.optimize(*args, edge_weights=w, **kw)
+    assert graph.STATS["captures"] == c0 and st["iterations"] > 0
+    assert posegraph.prepare(150, **kw) == 0
 
 
 @pytest.mark.gpu

@@ -143,7 +143,10 @@ def test_convert_round_trip(problem):
             np.testing.assert_array_equal(back[k], v)
     assert tf.start.dtype == torch.int64 and tf.obs_mask.dtype == torch.bool
     cfg = jconfig.euroc_config()
-    assert dataclasses.asdict(convert.config_from_dict(dataclasses.asdict(cfg))) == \
-        dataclasses.asdict(cfg)
+    back = dataclasses.asdict(convert.config_from_dict(dataclasses.asdict(cfg)))
+    assert {k: back[k] for k in dataclasses.asdict(cfg)} == dataclasses.asdict(cfg)
+    # the port's own fields (loop closing) keep their defaults
+    default = dataclasses.asdict(convert.VioConfig())
+    assert all(back[k] == default[k] for k in set(back) - set(dataclasses.asdict(cfg)))
     with pytest.raises(KeyError):
         convert.window_states_from_numpy({"Ps": np.zeros((2, 3))}, **CPU64)

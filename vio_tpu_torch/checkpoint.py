@@ -43,6 +43,16 @@ def _unpack_buf(d):
     return buf
 
 
+def _cfg_fields(cfg: VioConfig) -> dict:
+    """The configuration as the file holds it: the loop-closing fields,
+    which the JAX package's configuration lacks, only where one differs
+    from its default, so that a file without loop closing loads in both
+    packages.  The closer's state is not saved (``LoopCloser.save``)."""
+    default = VioConfig()
+    return {k: v for k, v in cfg.__dict__.items()
+            if not k.startswith("loop_") or v != getattr(default, k)}
+
+
 def save(est: Estimator, path: str):
     """Write the full estimator state to one .npz file."""
     arrays = {}
@@ -53,7 +63,7 @@ def save(est: Estimator, path: str):
         failure_count=est.failure_count, frame_solved=est.frame_solved,
         initial_timestamp=est.initial_timestamp,
         last_track_num=est.fm.last_track_num,
-        cfg=est.cfg.__dict__.copy(),
+        cfg=_cfg_fields(est.cfg),
     )
     for name in ("Ps", "Rs", "Vs", "Bas", "Bgs", "headers", "acc_0",
                  "gyr_0", "g", "H_prior", "b_prior", "err_prior",

@@ -92,6 +92,18 @@ class VioConfig:
                                      # scale residue) wash out instead of
                                      # being locked in by the prior
 
+    # --- loop closing (VINS-Mono's loop_closure flag, euroc_config.yaml;
+    #     the course code reads it and wires no pose graph) ---
+    loop_closure: int = 0            # 1: the estimator owns a LoopCloser
+                                     # (loop/closer.py), hands it each
+                                     # keyframe and publishes the
+                                     # drift-corrected pose; the window is
+                                     # not rebased (fast_relocalization 0)
+    loop_min_gap: int = 60           # the closer's settings that deployments
+    loop_train_after: int = 25       # vary (LoopCloser's min_gap, keyframes
+                                     # between a loop's ends, and train_after,
+                                     # the keyframes the vocabulary trains on)
+
     # --- frontend ---
     max_cnt: int = 150
     min_dist: int = 30

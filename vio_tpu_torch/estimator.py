@@ -13,6 +13,13 @@ SfM, and one ``solver/frame_step.py`` call per frame (assembly + LM solve
 through the Gauss-Jordan kernel; on the card, the frame's captured CUDA
 graphs replayed).  The marginalization prior chain and
 the visual-IMU alignment stay on the host in float64 on every device.
+
+With ``cfg.loop_closure`` (VINS-Mono's flag) the estimator owns a
+``LoopCloser`` on its own device and in its own dtype, hands it each
+keyframe inside ``process_image`` (on the frame's thread) and publishes
+the pose corrected by the closer's drift (``latest_pose``): VINS-Mono's
+drift-corrected path with ``fast_relocalization: 0``, so the window is
+never rebased.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from .device import resolve
 from .feature_manager import FeatureManager
 from .init import alignment, sfm
 from .init.ex_rotation import ExtrinsicRotationCalibrator
+from .loop.closer import LoopCloser
 from .solver import frame_step, marginalize, window as W
 from .utils import lie
 from .utils import lie_np
@@ -36,6 +44,10 @@ from .utils import lie_np
 # 37.1 to 24.4 ms of device time and run_sim from 17.1 to 19.5 frames/s,
 # for 10 graph keys instead of 2 over 150 frames (PERF.md §6).
 IMU_BUCKET = 8
+
+# solved landmarks a keyframe needs to enter the loop closer (the count
+# the test hooks kept before the flag)
+LOOP_MIN_LANDMARKS = 10
 
 SOLVER_INITIAL = 0
 SOLVER_NON_LINEAR = 1
@@ -192,6 +204,17 @@ def _pad_buffer(buf: IntervalBuffer | None, M: int):
     return dts, accs, gyrs, mask, acc0, gyr0
 
 
+def _ms_key(span: str, in_loop: bool = False) -> str:
+    """A span's key in a frame's telemetry: ``est.pack`` → ``pack_ms``,
+    ``graph.wait`` → ``wait_ms``; inside the closer's call every key is
+    the loop's: ``est.loop`` → ``loop_ms``, ``loop.solve`` →
+    ``loop_solve_ms``, the pose graph's ``graph.wait`` → ``loop_wait_ms``."""
+    part = span.partition(".")[2]
+    if in_loop and span != "est.loop":
+        return f"loop_{part}_ms"
+    return f"{part}_ms"
+
+
 class Estimator:
     """The sliding-window VIO core (reference estimator.{h,cpp})."""
 
@@ -216,6 +239,10 @@ class Estimator:
         # hardware property, not a trajectory state.
         self.td = float(cfg.td)
         self._record = None      # the solved frame's telemetry, until it ends
+        self.closer = (LoopCloser(R_ic=cfg.R_ic, t_ic=cfg.t_ic, min_gap=cfg.loop_min_gap,
+                                  train_after=cfg.loop_train_after, focal=cfg.focal_length,
+                                  device=self.device, dtype=self.dtype)
+                       if cfg.loop_closure else None)
         self.clear_state()
 
     # ------------------------------------------------------------------
@@ -260,6 +287,10 @@ class Estimator:
         self.last_excitation = 0.0
         # telemetry survives failure resets (it documents them)
         self.telemetry: list[dict] = getattr(self, "telemetry", [])
+        # a reset starts a new world frame: the closer's keyframes and
+        # drift belong to the old one
+        if self.closer is not None:
+            self.closer.reset()
 
     def pop_telemetry(self) -> list[dict]:
         """Drain the per-solve telemetry records collected so far."""
@@ -304,26 +335,57 @@ class Estimator:
     # image path (processImage, estimator.cpp:141-238)
     # ------------------------------------------------------------------
 
-    def process_image(self, feats: dict, t: float):
-        """feats: {feature_id: (bearing (3,) with z=1, uv (2,), vel (2,))}.
+    def process_image(self, feats: dict, t: float, descriptors: dict | None = None):
+        """feats: {feature_id: (bearing (3,) with z=1, uv (2,), vel (2,))};
+        descriptors: {feature_id: packed (8,) uint32 descriptor}, the
+        frame's for the loop closer (``LoopCloser.add_keyframe``'s
+        layout), required with ``cfg.loop_closure`` and unused without.
         A frame that solves appends its telemetry record once it is done:
         the solve's numbers, each span opened in the frame as
-        ``<name>_ms`` (the part after the dot: ``pack_ms``, ``step_ms``,
-        ``wait_ms``, ...; ``trace.py``), ``reads`` (the LM loop's host
-        reads of its condition, 0 on the CPU), ``solve_ms`` (pack + step)
-        and ``marg_ms`` (the prior chain)."""
+        ``<name>_ms`` (``trace.py``; the part after the dot: ``frame_ms``,
+        ``pack_ms``, ``step_ms``, the frame step's ``wait_ms``, ...; the
+        closer's call under the loop's own keys: ``loop_ms``,
+        ``loop_query_ms``, ``loop_verify_ms``, ``loop_solve_ms`` and its
+        pose graph's ``loop_wait_ms``, ``loop_replay_ms``, ...), ``reads``
+        (the LM loop's host reads of its condition, 0 on the CPU),
+        ``solve_ms`` (pack + step) and ``marg_ms`` (the prior chain)."""
+        if self.closer is not None and descriptors is None:
+            raise ValueError("loop_closure is on: process_image needs the frame's "
+                             "descriptors")
         m = trace.mark()
         self._record = None      # nothing left from a call that raised
+        in_loop = {}
         with trace.span("est.frame"):
             self._process_image(feats, t)
+            own = trace.since(m)
+            if self.closer is not None:
+                m_loop = trace.mark()
+                self._add_keyframe(descriptors)
+                in_loop = trace.since(m_loop)
         rec, self._record = self._record, None
         if rec is not None:
-            secs = trace.since(m)
-            ms = {name.partition(".")[2] + "_ms": round(s * 1e3, 3)
-                  for name, s in secs.items()}
-            rec.update(ms, solve_ms=round((secs["est.pack"] + secs["est.step"]) * 1e3, 3),
+            own["est.frame"] = trace.since(m)["est.frame"]
+            ms = {_ms_key(name): round(s * 1e3, 3) for name, s in own.items()}
+            ms.update({_ms_key(name, True): round(s * 1e3, 3) for name, s in in_loop.items()})
+            rec.update(ms, solve_ms=round((own["est.pack"] + own["est.step"]) * 1e3, 3),
                        marg_ms=ms["prior_ms"])
             self.telemetry.append(rec)
+
+    def _add_keyframe(self, descriptors: dict):
+        """The loop closer's keyframe (VINS-Mono's keyframe to the pose
+        graph): after a frame that marginalized the oldest, with at least
+        ``LOOP_MIN_LANDMARKS`` solved landmarks in view, the newest
+        frame's odometry pose, landmarks and descriptors."""
+        if not self.initialized or self.marg_flag != MARGIN_OLD:
+            return
+        with trace.span("est.loop"):
+            ids, xy, pts_cam = self.current_landmarks()
+            if len(ids) < LOOP_MIN_LANDMARKS:
+                return
+            k = self.frame_count
+            self.closer.add_keyframe(self.headers[k], self.Ps[k].copy(), self.Rs[k].copy(),
+                                     np.stack([descriptors[int(i)] for i in ids]), xy,
+                                     pts_cam=pts_cam, pts_xy=xy)
 
     def _process_image(self, feats: dict, t: float):
         with trace.span("est.features"):
@@ -1072,10 +1134,12 @@ class Estimator:
         return self.solver_flag == SOLVER_NON_LINEAR
 
     def latest_pose(self):
-        """(t, p_wb, R_wb) of the newest window frame."""
-        return (self.headers[self.frame_count],
-                self.Ps[self.frame_count].copy(),
-                self.Rs[self.frame_count].copy())
+        """(t, p_wb, R_wb) of the newest window frame; with loop closing,
+        corrected by the closer's drift (``LoopCloser.live_correct``)."""
+        p, R = self.Ps[self.frame_count].copy(), self.Rs[self.frame_count].copy()
+        if self.closer is not None:
+            p, R = self.closer.live_correct(p, R)
+        return self.headers[self.frame_count], p, R
 
     def current_landmarks(self):
         """Local reconstruction at the newest frame for loop closing:
@@ -1084,10 +1148,10 @@ class Estimator:
         now with a solved depth (the relocalization side data of
         estimator.cpp:622-642 / setReloFrame).
 
-        Callers (runner on_frame hooks) see the estimator AFTER the
-        window slide, where the just-processed frame's observations sit at
-        index frame_count-1 (the slide copied its states up to
-        frame_count, so both indices hold the same pose)."""
+        Callers (``_add_keyframe``, runner on_frame hooks) see the
+        estimator AFTER the window slide, where the just-processed frame's
+        observations sit at index frame_count-1 (the slide copied its
+        states up to frame_count, so both indices hold the same pose)."""
         fts = self.fm.features.values()
         j = max((ft.end_frame for ft in fts), default=self.frame_count)
         R_wc_j = self.Rs[j] @ self.ric

@@ -25,18 +25,29 @@ through ``utils/lie_np.py``); descriptors are packed ``uint32`` numpy at
 this interface and in the saved file, which has the JAX package's layout.
 Hamming matching, PnP and the pose graph's residuals run on the closer's
 device in its dtype.
+
+``add_keyframe`` opens three spans (``trace.py``): ``loop.query`` (the
+vocabulary's training, the database's insert and query), ``loop.verify``
+(the Hamming match and the two PnP solves) and ``loop.solve`` (the
+pose-graph solve of ``_update_drift``).  ``stats`` counts the keyframes
+added, the loops accepted and the pose-graph solves.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve
 from ..features import orb
 from ..init import sfm
 from ..utils import lie_np
 from . import posegraph
 from .vocab import LoopDatabase, Vocabulary
+
+SOLVE_ITER = 40           # the pose graph's LM iterations a solve, at most
 
 
 class Keyframe:
@@ -79,6 +90,14 @@ class LoopCloser:
         # (real imagery localizes corners to a pixel or two; the old exact
         # d<1e-6 lookup only worked with oracle-id harnesses)
         self.assoc_tol = assoc_tol_px / focal
+        self.stats: Counter = Counter()   # keyframes, loops, solves
+        self.reset()
+
+    def reset(self):
+        """Forget every keyframe, the vocabulary, the loops and the drift:
+        the estimator's failure reset starts a new world frame, which no
+        odometry edge may join to the old one (VINS-Mono starts a new
+        sequence there).  ``stats`` keeps counting."""
         self.kfs: list[Keyframe] = []
         self.vocab: Vocabulary | None = None
         self.db: LoopDatabase | None = None
@@ -115,33 +134,45 @@ class LoopCloser:
         coords — required on the OLD side of a loop for a metric edge."""
         kf = Keyframe(t, p_wb, R_wb, descriptors, xy, pts_cam, pts_xy)
         self.kfs.append(kf)
+        self.stats["keyframes"] += 1
         k = len(self.kfs) - 1
 
-        if self.vocab is None:
-            if len(self.kfs) >= self.train_after:
-                corpus = np.concatenate(
-                    [f.desc for f in self.kfs if len(f.desc)], axis=0)
-                self.vocab = Vocabulary.train(corpus, self.vocab_words,
-                                              device=self.device)
-                self.db = LoopDatabase(self.vocab, self.alpha, self.min_gap)
-                for f in self.kfs:
-                    self.db.add(f.desc)
-            return None
-        self.db.add(descriptors)
-
-        hit = self.db.query(k)
+        with trace.span("loop.query"):
+            if self.vocab is None:
+                if len(self.kfs) >= self.train_after:
+                    corpus = np.concatenate(
+                        [f.desc for f in self.kfs if len(f.desc)], axis=0)
+                    self.vocab = Vocabulary.train(corpus, self.vocab_words,
+                                                  device=self.device)
+                    self.db = LoopDatabase(self.vocab, self.alpha, self.min_gap)
+                    for f in self.kfs:
+                        self.db.add(f.desc)
+                return None
+            self.db.add(descriptors)
+            hit = self.db.query(k)
         if hit is None:
             return None
         j, score = hit
-        edge = self._verify(j, k)
+        with trace.span("loop.verify"):
+            edge = self._verify(j, k)
         if edge is None:
             return None
         dP, dq = edge
         self.loops.append((j, k, dP, dq))
-        self._update_drift()
+        self.stats["loops"] += 1
+        with trace.span("loop.solve"):
+            self._update_drift()
         return (j, k, dP, dq)
 
-    def _update_drift(self, max_iter: int = 40):
+    def prepare(self, n_keyframes: int) -> int:
+        """Capture the pose-graph graphs that a solve over
+        ``n_keyframes`` keyframes replays (``posegraph.prepare``), so that
+        the first solve there captures nothing; returns the graphs captured
+        (none on the CPU)."""
+        return posegraph.prepare(n_keyframes, max_iter=SOLVE_ITER, device=self.device,
+                                 dtype=self.dtype)
+
+    def _update_drift(self, max_iter: int = SOLVE_ITER):
         """Re-solve the pose graph after an accepted loop and cache the
         newest keyframe's world correction, so subsequent poses can be
         drift-corrected ONLINE (live_correct) instead of only by a
@@ -155,6 +186,7 @@ class LoopCloser:
         P_opt, q_opt, _ = posegraph.optimize(
             kf_P, kf_q, ei, ej, dPs, dqs, edge_weights=w, max_iter=max_iter,
             device=self.device, dtype=self.dtype)
+        self.stats["solves"] += 1
         R_opt_last = lie_np.quat_to_mat_np(q_opt[-1])
         self.drift_R = R_opt_last @ self.kfs[-1].R.T
         self.drift_t = P_opt[-1] - self.drift_R @ self.kfs[-1].p
@@ -183,23 +215,25 @@ class LoopCloser:
         self.drift_R = dR_new
 
     def _edges(self, K: int):
-        """Pose-graph edge set: sequential odometry + accepted loops."""
-        ei, ej, dPs, dqs, w = [], [], [], [], []
-        for k in range(K - 1):
-            Ri = self.kfs[k].R
-            ei.append(k)
-            ej.append(k + 1)
-            dPs.append(Ri.T @ (self.kfs[k + 1].p - self.kfs[k].p))
-            dqs.append(lie_np.mat_to_quat_np(Ri.T @ self.kfs[k + 1].R))
-            w.append(1.0)
-        for (j, i, dP, dq) in self.loops:
-            ei.append(j)
-            ej.append(i)
-            dPs.append(dP)
-            dqs.append(dq)
-            w.append(self.loop_weight)
-        return (np.asarray(ei), np.asarray(ej), np.stack(dPs),
-                np.stack(dqs), np.asarray(w))
+        """Pose-graph edge set: sequential odometry + accepted loops.  The
+        K - 1 odometry edges in one batch: a Python loop over a few hundred
+        keyframes costs the host more than the solve's graphs take on the
+        card."""
+        ei, ej = np.arange(K - 1), np.arange(1, K)
+        if K > 1:
+            Rt = np.stack([f.R for f in self.kfs[:K]]).swapaxes(1, 2)   # R_kᵀ
+            p = np.stack([f.p for f in self.kfs[:K]])
+            dPs = np.matmul(Rt[:-1], (p[1:] - p[:-1])[:, :, None])[:, :, 0]
+            dqs = lie_np.mat_to_quat_np(np.matmul(Rt[:-1], Rt[1:].swapaxes(1, 2)))
+        else:
+            dPs, dqs = np.zeros((0, 3)), np.zeros((0, 4))
+        w = np.ones(K - 1)
+        if self.loops:
+            j, i, dP, dq = zip(*self.loops)
+            ei, ej = np.concatenate([ei, j]), np.concatenate([ej, i])
+            dPs, dqs = np.concatenate([dPs, np.stack(dP)]), np.concatenate([dqs, np.stack(dq)])
+            w = np.concatenate([w, np.full(len(self.loops), float(self.loop_weight))])
+        return ei, ej, dPs, dqs, w
 
     # -- geometric verification ----------------------------------------
 

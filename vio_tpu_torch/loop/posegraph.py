@@ -17,26 +17,36 @@ the (6M, 6N) Jacobian.
 the whole LM runs on the device (``solver/generic.py``'s branch-free
 Nielsen attempt), the damped solve included.  The problem is padded:
 the poses to a multiple of ``POSE_BUCKET`` (a padded pose is the identity,
-held fixed), the edges to a multiple of ``EDGE_BUCKET`` (a padded edge
+held fixed), the edges to ``EDGES_PER_POSE`` times the padded poses, or
+to the next multiple of ``EDGE_BUCKET`` above that (a padded edge
 joins pose 0 to itself and weighs 0, and its rows are masked with
 ``torch.where``: a degenerate edge's forward-mode tangent may be NaN,
 which a product with 0 keeps).  A padded pose adds a zero block to H,
 whose damped step is 0; a padded edge adds nothing; so chi², max|diag H|,
 ρ and every decision of the LM are those of the unpadded problem.  The
 buckets let a growing graph (a loop closer's keyframes and loops) share
-keys.  Three routes, as ``parallel/global_ba.py``'s:
+keys; a closer's graph has at most two edges a keyframe (its odometry
+edge and one loop), so its key follows its poses alone, and ``prepare``
+captures the keys a graph will reach before its solves do.  Three
+routes, as ``parallel/global_ba.py``'s:
 
 - ``optimize_graphed``: the card, from the captured graphs of
   ``graph_key`` (``solver/graph.py``); one host read of the loop's
   condition per ``graph.CHUNK`` attempts, one upload, one read of the
-  results; the damped solve is ``gj_solve`` up to its ceiling
-  (``linsolve.KERNEL_MAX_P``), above which it raises;
+  results; the damped solve is the library's Cholesky
+  (``linsolve.cholesky_solve``) inside the same graphs, at every size;
 - ``optimize_eager``: the same attempts op by op on any device (the
   graphs' twin on the card);
 - ``optimize``: the graphs on a CUDA device, the eager loop on the CPU.
+
+``STATS`` counts, over the process, the solves, their unpadded poses,
+LM attempts and iterations, the graphs the solves captured and the
+seconds capturing; ``ATTEMPTS_BY_P`` tallies the attempts (one damped
+solve each) by the padded P = 6 × padded poses.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -48,7 +58,11 @@ from ..utils import lie
 
 POSE_BUCKET = 32          # poses padded to a multiple of this
 EDGE_BUCKET = 64          # edges padded to a multiple of this
+EDGES_PER_POSE = 2        # ... and to at least this many a padded pose
 STOP_DELTA_CHI = 1e-5     # lm_solve_dense's default, which vio_tpu's optimize keeps
+
+STATS: Counter = Counter()   # solves, poses, attempts, iterations, captures, capture_s
+ATTEMPTS_BY_P: Counter = Counter()   # padded P -> attempts
 
 
 def se3_edge_residual(Pi, qi, Pj, qj, dP, dq):
@@ -81,7 +95,8 @@ def padded(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weights=None,
            fix_first: bool = True) -> list[np.ndarray]:
     """The padded problem as host arrays, in ``PoseGraph``'s order."""
     N, M = len(Ps0), len(edges_i)
-    n, m = _bucket(N, POSE_BUCKET), _bucket(M, EDGE_BUCKET)
+    n = _bucket(N, POSE_BUCKET)
+    m = _bucket(max(M, EDGES_PER_POSE * n), EDGE_BUCKET)
     Ps = np.zeros((n, 3))
     qs = np.tile([0.0, 0.0, 0.0, 1.0], (n, 1))
     ei, ej = np.zeros(m, np.int64), np.zeros(m, np.int64)
@@ -160,19 +175,39 @@ def graph_key(n_pad: int, m_pad: int, dtype, fix_first: bool, max_iter: int,
             float(stop_delta_chi), torch.device(device))
 
 
-def _check_size(arrays, device) -> None:
-    """On the card the damped solve is ``gj_solve``: refuse a graph above
-    its ceiling rather than take another route."""
-    P = 6 * arrays[0].shape[0]
-    if device.type == "cuda" and P > linsolve.KERNEL_MAX_P:
-        raise ValueError(f"pose graph of {P // 6} padded poses: its damped solve has {P} "
-                         f"unknowns, above gj_solve's ceiling linsolve.KERNEL_MAX_P = "
-                         f"{linsolve.KERNEL_MAX_P}")
+def _count(N: int, P: int, stats: dict, captures: int = 0, capture_s: float = 0.0) -> None:
+    STATS["solves"] += 1
+    STATS["poses"] += N
+    STATS["attempts"] += stats["attempts"]
+    STATS["iterations"] += stats["iterations"]
+    STATS["captures"] += captures
+    STATS["capture_s"] += capture_s
+    ATTEMPTS_BY_P[P] += stats["attempts"]
 
 
 def _result(N: int, Ps, qs, stats: dict):
     return (np.asarray(Ps, dtype=np.float64)[:N], np.asarray(qs, dtype=np.float64)[:N],
             stats)
+
+
+def _run_graphed(arrays, fix_first: bool, max_iter: int, device, dtype):
+    """The padded problem ``arrays`` solved from its key's captured graphs:
+    (outputs, stats, P, graphs captured, their seconds)."""
+    device = torch.device(device)
+    graph.require_cuda(device, "posegraph.optimize_graphed")
+    if device.type == "cuda" and device.index is None:   # the key holds the index
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = graph_key(len(arrays[0]), len(arrays[2]), dtype, fix_first, max_iter,
+                    STOP_DELTA_CHI, device)
+    fns = generic.graph_fns(lambda views: problem(PoseGraph(*views), max_iter))
+    g = graph.loop_graph(key, [graph.spec_of(a, dtype) for a in arrays], *fns, device)
+    linsolve.warm_cholesky(device, dtype)
+    g.inputs.upload(arrays)
+    c0, s0 = graph.STATS["captures"], graph.STATS["capture_s"]
+    Ps, qs, chi, it, log_chi, log_lam = g.run()
+    stats = dict(generic.device_stats(chi, it, log_chi, log_lam, g.attempts, g.reads), key=key)
+    return ((Ps, qs), stats, 6 * len(arrays[0]), graph.STATS["captures"] - c0,
+            graph.STATS["capture_s"] - s0)
 
 
 def optimize_graphed(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weights=None,
@@ -181,22 +216,35 @@ def optimize_graphed(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weight
     the padded host arrays in one upload, the LM's attempts replayed with
     one host read of the loop's condition per ``graph.CHUNK`` attempts,
     the results back in one read.  Raises on a CPU device (there is no
-    eager fallback) and above ``gj_solve``'s ceiling."""
-    device = torch.device(device)
-    graph.require_cuda(device, "posegraph.optimize_graphed")
-    if device.type == "cuda" and device.index is None:   # the key holds the index
-        device = torch.device("cuda", torch.cuda.current_device())
+    eager fallback).  The damped solve, the library's Cholesky, is
+    captured with the rest; its handle is made before any capture
+    (``linsolve.warm_cholesky``)."""
     arrays = padded(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weights, fix_first)
-    _check_size(arrays, device)
-    key = graph_key(len(arrays[0]), len(arrays[2]), dtype, fix_first, max_iter,
-                    STOP_DELTA_CHI, device)
-    fns = generic.graph_fns(lambda views: problem(PoseGraph(*views), max_iter))
-    g = graph.loop_graph(key, [graph.spec_of(a, dtype) for a in arrays], *fns, device)
-    g.inputs.upload(arrays)
-    Ps, qs, chi, it, log_chi, log_lam = g.run()
-    return _result(len(Ps0), Ps, qs,
-                   dict(generic.device_stats(chi, it, log_chi, log_lam, g.attempts, g.reads),
-                        key=key))
+    (Ps, qs), stats, P, captures, capture_s = _run_graphed(arrays, fix_first, max_iter,
+                                                           device, dtype)
+    _count(len(Ps0), P, stats, captures, capture_s)
+    return _result(len(Ps0), Ps, qs, stats)
+
+
+def prepare(n_poses: int, fix_first: bool = True, max_iter: int = 50, *, device,
+            dtype) -> int:
+    """Capture the graphs that a solve of ``n_poses`` poses (and at most
+    ``EDGES_PER_POSE`` edges a padded pose) replays, before its first
+    solve: a chain of identity poses, as many as the padded poses, is
+    solved once from them.  Returns the graphs captured: 0 where the key
+    was captured already, and on the CPU, which captures nothing.
+    ``STATS`` counts the captures and their seconds, not the solve."""
+    if torch.device(device).type != "cuda":
+        return 0
+    n = _bucket(n_poses, POSE_BUCKET)
+    chain = np.arange(n - 1)
+    arrays = padded(np.zeros((n, 3)), np.tile([0.0, 0.0, 0.0, 1.0], (n, 1)), chain,
+                    chain + 1, np.zeros((n - 1, 3)), np.tile([0.0, 0.0, 0.0, 1.0], (n - 1, 1)),
+                    fix_first=fix_first)
+    _, _, _, captures, capture_s = _run_graphed(arrays, fix_first, max_iter, device, dtype)
+    STATS["captures"] += captures
+    STATS["capture_s"] += capture_s
+    return captures
 
 
 def optimize_eager(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weights=None,
@@ -206,15 +254,15 @@ def optimize_eager(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weights=
     graphs' twin."""
     device = torch.device(device)
     arrays = padded(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weights, fix_first)
-    _check_size(arrays, device)
     g = PoseGraph(*(torch.as_tensor(a, dtype=graph.spec_of(a, dtype)[1], device=device)
                     for a in arrays))
     q, x0, unpack = problem(g, max_iter)
     s, n = generic.solve_device(q, x0)
     Ps, qs, chi, it, log_chi, log_lam = (t.cpu().numpy() for t in (
         *unpack(s.x), s.chi, s.it, s.log_chi, s.log_lam))
-    return _result(len(Ps0), Ps, qs,
-                   dict(generic.device_stats(chi, it, log_chi, log_lam, n, n), key=None))
+    stats = dict(generic.device_stats(chi, it, log_chi, log_lam, n, n), key=None)
+    _count(len(Ps0), 6 * len(arrays[0]), stats)
+    return _result(len(Ps0), Ps, qs, stats)
 
 
 def optimize(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq,

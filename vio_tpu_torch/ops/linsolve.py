@@ -20,6 +20,7 @@ follows the TPU's tile shape and is not carried over.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -29,9 +30,9 @@ from . import _build
 # kRegMaxP), and its panel width above that (kNB).
 REGISTER_MAX_P = {torch.float32: 176, torch.float64: 127}
 PANEL = 32
-# The kernel's largest system (gj_solve.cu's kMaxP): a pose graph of 682
-# poses, a float64 working copy of 136 MB.  Nothing in the blocked
-# regime's indexing or grid depends on it.
+# The kernel's largest system (gj_solve.cu's kMaxP), a float64 working
+# copy of 136 MB.  Nothing in the blocked regime's indexing or grid
+# depends on it.
 KERNEL_MAX_P = 4096
 # spd_solve's largest direct solve; larger systems go to Jacobi-PCG, as in
 # vio_tpu (vio_tpu/ops/linsolve.py:95).
@@ -120,6 +121,44 @@ def gj_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 gj_solve.launches = 0   # launches on the card, a graph's replays included
 gj_solve.captured = 0   # launches recorded into CUDA graphs (solver/graph.py)
+
+
+def cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b (A (P, P) SPD, b (P,)) with the library's Cholesky
+    factorisation and its two triangular solves (``torch.linalg.cholesky_ex``
+    without its error check, ``torch.cholesky_solve``): nothing is read
+    back to the host, so a CUDA graph captures it.  A is SPD by the
+    caller's contract, as for ``gj_solve``.  On the card it counts its
+    launches as ``gj_solve`` does; the first call of a thread on a device
+    should come before any capture (``warm_cholesky``), which makes the
+    library's handle."""
+    L, _ = torch.linalg.cholesky_ex(A, check_errors=False)
+    x = torch.cholesky_solve(b[:, None], L)[:, 0]
+    if A.is_cuda:
+        if torch.cuda.is_current_stream_capturing():
+            cholesky_solve.captured += 1
+        else:
+            cholesky_solve.launches += 1
+    return x
+
+
+cholesky_solve.launches = 0   # solves on the card, a graph's replays included
+cholesky_solve.captured = 0   # solves recorded into CUDA graphs (solver/graph.py)
+
+_CHOLESKY_WARM: set = set()
+
+
+def warm_cholesky(device, dtype) -> None:
+    """One eager library solve on ``device`` in ``dtype`` from this thread,
+    once: the solver library's handle and workspace come into being here,
+    never inside a capture."""
+    key = (threading.get_ident(), torch.device(device), dtype)
+    if key in _CHOLESKY_WARM:
+        return
+    eye = torch.eye(2, dtype=dtype, device=device)
+    L, _ = torch.linalg.cholesky_ex(eye, check_errors=False)
+    torch.cholesky_solve(eye[:, :1], L)
+    _CHOLESKY_WARM.add(key)
 
 
 def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

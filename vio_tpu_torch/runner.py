@@ -45,7 +45,8 @@ def run_sim(data, cfg: VioConfig | None = None, n_frames: int | None = None,
     System.cpp:144-146).  ``device``/``dtype`` place the estimator's
     device work: the CUDA device unless the caller passes ``device="cpu"``
     (``device.resolve``); dtype defaults to float32 on CUDA, float64 on
-    the CPU.
+    the CPU.  Where the stream carries descriptors (``data.descriptors``),
+    each frame's go with its features, for the estimator's loop closer.
     Returns (est, traj dict)."""
     if cfg is None:
         from .config import sim_config
@@ -54,6 +55,7 @@ def run_sim(data, cfg: VioConfig | None = None, n_frames: int | None = None,
 
     n = len(data.cam_t) if n_frames is None else min(n_frames, len(data.cam_t))
     out = _Trajectory(est, on_frame)
+    descriptors = getattr(data, "descriptors", None)
     imu_i = 0
     # est.td: camera-IMU time offset — t_imu = t_cam + td (parameters.cpp
     # TD), read live so online refinement shifts subsequent pairing.
@@ -69,7 +71,8 @@ def run_sim(data, cfg: VioConfig | None = None, n_frames: int | None = None,
             xy = data.obs_xy[k, lid]
             feats[int(lid)] = (np.array([xy[0], xy[1], 1.0]),
                                data.obs_uv[k, lid], np.zeros(2))
-        est.process_image(feats, t)
+        desc = None if descriptors is None else {lid: descriptors[lid] for lid in feats}
+        est.process_image(feats, t, desc)
         out.after_frame(t, feats)
         if progress and k % 50 == 0:
             print(f"frame {k}/{n} init={est.initialized} "

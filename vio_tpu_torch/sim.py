@@ -102,6 +102,9 @@ class SimData:
     obs_xy: np.ndarray         # (M, L, 2) normalized coords
     obs_uv: np.ndarray         # (M, L, 2) pixel coords
     obs_valid: np.ndarray      # (M, L) bool
+    # (L, 8) uint32: one packed 256-bit descriptor per landmark, where the
+    # stream carries them (generate's descriptor_seed), else None
+    descriptors: np.ndarray | None = None
 
 
 def house_landmarks() -> np.ndarray:
@@ -147,7 +150,7 @@ def generate(noise: bool = False,
              pixel_noise: float = 0.0,
              k1: float = 0.0, k2: float = 0.0,
              p1: float = 0.0, p2: float = 0.0,
-             R_bc=None, t_bc=None) -> SimData:
+             R_bc=None, t_bc=None, descriptor_seed: int | None = None) -> SimData:
     """Generate the full dataset (constants = reference simulator defaults,
     simulator/include/param.h:14-36).
 
@@ -156,7 +159,12 @@ def generate(noise: bool = False,
     frontend must undo via camera.lift, like EuRoC's camera —
     reference config/euroc_config.yaml distortion_parameters).  obs_xy
     stays the IDEAL normalized coordinate (the tracker-bypass path feeds
-    undistorted measurements by definition)."""
+    undistorted measurements by definition).
+
+    descriptor_seed: when given, the stream carries one fixed random 256-bit
+    descriptor per landmark drawn from it (``SimData.descriptors``), what a
+    distinctive texture patch would give a loop closer
+    (tests/test_loop_integration.py's oracle)."""
     if R_bc is None:
         R_bc = np.array([[0.0, 0.0, -1.0], [-1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
     if t_bc is None:
@@ -227,6 +235,8 @@ def generate(noise: bool = False,
         imu_p=np.asarray(cam["p_wb"]), imu_R=np.asarray(cam["R_wb"]),
         imu_v=np.asarray(cam["v_wb"]),
         landmarks=pts, obs_xy=xy, obs_uv=uv, obs_valid=valid,
+        descriptors=None if descriptor_seed is None else np.random.default_rng(
+            descriptor_seed).integers(0, 2 ** 32, size=(len(pts), 8), dtype=np.uint32),
     )
 
 

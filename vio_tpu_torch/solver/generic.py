@@ -16,12 +16,12 @@ selects and every update gated by the loop's condition, so an attempt
 made after the loop has ended changes no bit (as ``solver/lm.py``'s and
 ``parallel/global_ba.py``'s).  The normal equations are re-linearised at
 every candidate and selected on accept; the damped solve (H + λI) dx = b
-is the Gauss-Jordan kernel on a CUDA tensor (H + λI is SPD, its
-contract) and ``torch.linalg.solve`` on the CPU, ``vio_tpu``'s own
-``np.linalg.solve``.  ``solve_device`` runs it eagerly with one host read
-of the loop's condition after each attempt; ``graph_fns`` gives the head,
-chunk and tail of a ``graph.LoopGraph``.  The ALPHA strategy stays on the
-host loop.
+(H + λI is SPD, its contract) is the library's Cholesky on a CUDA tensor
+(``linsolve.cholesky_solve``, captured with the rest) and
+``torch.linalg.solve`` on the CPU, ``vio_tpu``'s own ``np.linalg.solve``.  ``solve_device`` runs it eagerly
+with one host read of the loop's condition after each attempt;
+``graph_fns`` gives the head, chunk and tail of a ``graph.LoopGraph``.
+The ALPHA strategy stays on the host loop.
 """
 from __future__ import annotations
 
@@ -169,12 +169,13 @@ class LMState(NamedTuple):
 
 
 def damped_solve(H, b, lam):
-    """(H + λI) dx = b: ``gj_solve`` on a CUDA tensor, ``torch.linalg.solve``
-    on the CPU."""
+    """(H + λI) dx = b: the library's Cholesky (``linsolve.cholesky_solve``,
+    no host read, so the captured graphs hold it) on a CUDA tensor at
+    every size, ``torch.linalg.solve`` on the CPU."""
     A = H.clone()
     A.diagonal().add_(lam)
     if A.is_cuda:
-        return linsolve.gj_solve(A, b)
+        return linsolve.cholesky_solve(A, b)
     return torch.linalg.solve(A, b)
 
 

@@ -102,7 +102,7 @@ STATS: Counter = Counter()
 # The kernel wrappers whose launches a graph holds: each counts the
 # launches it records into a capture (.captured) and its launches (.launches).
 COUNTED = (linsolve.gj_solve, ransac.sweep, ransac.refit, ransac.refit_best,
-           imu.preintegrate_kernel)
+           imu.preintegrate_kernel, linsolve.cholesky_solve)
 
 _NP = {torch.float32: np.float32, torch.float64: np.float64,
        torch.bool: np.bool_, torch.int64: np.int64}

@@ -16,7 +16,7 @@ and writes the difference into the frame's telemetry record
 (``Estimator.process_image``).
 
 Spans by name (``est.*`` in ``estimator.py``, ``graph.*`` in
-``solver/graph.py``):
+``solver/graph.py``, ``loop.*`` in ``loop/closer.py``):
 
 - ``est.frame``: ``process_image``, the whole call;
 - ``est.features``: the rolling-shutter shift, the feature manager's
@@ -30,6 +30,12 @@ Spans by name (``est.*`` in ``estimator.py``, ``graph.*`` in
 - ``est.prior``: the host float64 prior chain, its forgetting and the
   solve's record (``marg_ms``);
 - ``est.slide``: failure detection, td, the window slide, the last pose;
+- ``est.loop``: with loop closing, the keyframe handed to the closer
+  (its landmarks and ``LoopCloser.add_keyframe``), the ``loop.*`` inside;
+- ``loop.query``: the closer's vocabulary training, database insert and
+  query;
+- ``loop.verify``: a retrieved loop's Hamming match and two PnP solves;
+- ``loop.solve``: the pose-graph solve after an accepted loop;
 - ``graph.upload``: a ``Slab``'s staging writes and its copy to the card;
 - ``graph.replay``: a captured graph's replay, enqueued;
 - ``graph.wait``: the host blocked on a read of the loop's condition or
