@@ -45,6 +45,18 @@ them.  Phases, each of which raises on failure:
    slot live (the longest interval sets the kernel's time) the kernel's
    device ms as a graph node and back to back from Python, the plain
    loop's as a captured graph, and the least time by operations;
+27. the IMU factor kernel, right after phase 26: every frame key's
+   graphs hold one launch of ``window.imu_factor_kernel`` an assembly
+   (the head 1 + CHUNK, the chunk CHUNK, the tail one where it
+   marginalizes the oldest frame), and N_IMU_FACTOR_REPLAYS of phase 5's
+   frames run again add one launch an assembly; then the kernel against
+   the plain block (``window.imu_factor_reference``) on the card at the
+   benchmark cell's window, IMU_FACTOR_W intervals, in float32 and
+   float64, every interval valid, the first alone and scattered, to
+   tests/test_torch_imu_factor.py's bounds (IMU_FACTOR_RTOL); the
+   kernel's device ms as a graph node and back to back from Python, the
+   plain block's as a captured graph, and the least time by bytes and by
+   operations;
 6. frontend functions, card against CPU: ``klt.track_fb``,
    ``klt.sample_templates`` + ``klt.refine_on_templates``,
    ``detect.detect`` and ``clahe.clahe`` on one rendered 640×640 frame
@@ -279,7 +291,9 @@ alone), 11-16, 17, 18, 20 and 21,
 phases 5, 7, 9, 10, 17, 18, 20 and 21 (the tracker's on the image paths,
 the init's bootstrap on every estimator path), and ``preintegrate``,
 whose ``launches`` sums those of phases 5, 7, 9, 10, 17, 18 and 20 (one a
-solved frame from the head graphs, the initialiser's eager calls).  Each count is set to 0
+solved frame from the head graphs, the initialiser's eager calls), and
+``imu_factor``, whose ``launches`` sums those of phases 5, 7, 9, 10, 17,
+18, 20 and 21 (one an assembly).  Each count is set to 0
 just before each path and read just after; in phases 13-14 each rank
 counts its own and the ranks' counts are summed; in phases 20 and 21 each
 process reports its own, in its JSON line or its details.  The last line
@@ -320,6 +334,13 @@ GRAPH_RTOL, GRAPH_ATOL = 1e-5, 1e-6
 PREINT_W, PREINT_M = 10, (48, 72)
 PREINT_TOL = {torch.float32: (2e-5, 0.0), torch.float64: (1e-10, 1e-12)}
 N_PREINT_REPLAYS = 8
+# phase 27: the IMU factor kernel against the plain block at the benchmark
+# cell's window (W = 10 intervals), every interval valid, the first alone
+# (the marginalization's) and scattered, to tests/test_torch_imu_factor.py's
+# bounds (a share of each output's largest entry); phase 5's frames again
+IMU_FACTOR_W = 10
+IMU_FACTOR_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+N_IMU_FACTOR_REPLAYS = 8
 N_IMAGE_FRAMES = 155
 N_CLAHE_FRAMES = 30
 N_TWIN_TRACKER_FRAMES = 30     # phases 8 and 23: graphed against eager read_image
@@ -523,13 +544,15 @@ def ransac_counted(by_path: dict, label: str):
 
 
 @contextlib.contextmanager
-def preint_counted(by_path: dict, label: str):
-    """Zero the preintegration kernel's count just before a path, record
-    its launches under ``label`` just after."""
+def imu_kernels_counted(preint: dict, factor: dict, label: str):
+    """Zero the preintegration kernel's and the IMU factor kernel's counts
+    just before a path, record their launches under ``label`` just after."""
     from vio_tpu_torch import imu
-    imu.preintegrate_kernel.launches = 0
+    from vio_tpu_torch.solver import window as W
+    imu.preintegrate_kernel.launches = W.imu_factor_kernel.launches = 0
     yield
-    by_path[label] = imu.preintegrate_kernel.launches
+    preint[label] = imu.preintegrate_kernel.launches
+    factor[label] = W.imu_factor_kernel.launches
 
 
 def graph_rates(before: dict, frames: int, solves: int) -> tuple[str, dict]:
@@ -1337,6 +1360,113 @@ def preintegrate_on_card(frames: list, tag: str) -> dict:
                       f"{max(errs):.3e} of its largest entry; kernel {ms:.4f} ms as a graph "
                       f"node, {enqueued_ms:.4f} ms back to back; plain {plain_ms:.3f} ms "
                       f"as a graph; bound {bound:.3e} ms ({bound_by}) {tag}")
+    return rec
+
+
+def imu_factor_flops(W: int) -> int:
+    """Operations (a multiply or an add each) the IMU factors' block needs
+    once per interval (csrc/imu_factor.cu's note): Omega J 13,050, J^T
+    (Omega J) 26,100, Omega r 435, J^T Omega r 870, r^T Omega r 29, the
+    sums into Hpp, bp and chi 931, the residual and J's coefficients ~500."""
+    return W * (13050 + 26100 + 435 + 870 + 29 + 931 + 500)
+
+
+def imu_factor_bytes(W: int, dtype) -> int:
+    """Bytes the kernel must move: each interval's preintegrated terms
+    (242 numbers) and Omega (225), the frames' states (16 a frame), g, the
+    mask, and Hpp's band (15 rows a frame, 45 columns, less the two corner
+    blocks), bp and chi read and written."""
+    elem = torch.finfo(dtype).bits // 8
+    W1 = W + 1
+    return elem * (W * 467 + 16 * W1 + 3 + 2 * (15 * 45 * W1 - 450 + 15 * W1 + 1)) + W
+
+
+def imu_factor_problem(W: int, dtype, valid: str, seed: int):
+    """tests/test_torch_imu_factor.py's problem on the card: the
+    simulator's window with biases off their linearisation points, Omega
+    as the solve inverts it, Hpp, bp, chi as the reprojection factors
+    could leave them."""
+    from vio_tpu_torch import testing
+    from vio_tpu_torch.solver import window as Wn
+
+    st, f, _ = testing.make_window_problem(window_size=W, max_features=16, device="cuda",
+                                           dtype=dtype, seed=seed, perturb=0.05)
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, dtype=torch.float64)).to(
+            device="cuda", dtype=dtype)
+
+    st = st._replace(Bas=randn(W + 1, 3, scale=0.02), Bgs=randn(W + 1, 3, scale=0.002))
+    mask = {"all": torch.ones(W, dtype=torch.bool), "first": torch.arange(W) == 0,
+            "scattered": torch.rand(W, generator=g) < 0.5}[valid]
+    f = f._replace(imu_valid=mask.cuda())
+    A = randn(Wn.num_pose_params(W), Wn.num_pose_params(W))
+    return st, f, Wn._imu_infos(f), A @ A.T, randn(A.shape[0]), randn(scale=3.0).abs()
+
+
+def imu_factor_on_card(frames: list, tag: str) -> dict:
+    """Phase 27: the IMU factor kernel in the frame's graphs, then against
+    its plain version at the benchmark cell's window.  Returns
+    {dtype: numbers}."""
+    from vio_tpu_torch.solver import frame_step, graph
+    from vio_tpu_torch.solver import window as Wn
+
+    k = graph.COUNTED.index(Wn.imu_factor_kernel)
+    with graph._LOCK:
+        loops = [(key, g) for key, g in graph._CACHE.items()
+                 if isinstance(key[0], frame_step.FrameKey)]
+    for key, lg in loops:
+        held = {name: n[k] for name, n in lg.launches.items()}
+        want = {"head": 1 + lg.chunk, "chunk": lg.chunk, "tail": int(key[0].marg_old)}
+        if held != want:
+            raise AssertionError(f"imu_factor in the graphs of {key}: {held}, not {want}")
+    n0 = Wn.imu_factor_kernel.launches
+    replayed = frames[-N_IMU_FACTOR_REPLAYS:]
+    assemblies = 0
+    for args, kw, _ in replayed:
+        out = frame_step.frame_step_graphed(*args, **kw)
+        # lm.start's, one an attempt (graph.CHUNK a read), the marginalization's
+        assemblies += 1 + graph.CHUNK * out.reads + int(kw.get("marg_old", True))
+    torch.cuda.synchronize()
+    grew = Wn.imu_factor_kernel.launches - n0
+    if not (len(loops) > 0 and grew == assemblies):
+        raise AssertionError(f"imu_factor: {grew} launches over {len(replayed)} frames of "
+                             f"{assemblies} assemblies ({len(loops)} frame keys)")
+    print(f"imu_factor: one launch an assembly in the graphs of each of {len(loops)} frame "
+          f"keys (head 1 + CHUNK, chunk CHUNK, tail 1 where it marginalizes); {grew} "
+          f"launches over {len(replayed)} frames replayed, {assemblies} assemblies {tag}")
+
+    rec = {}
+    for dtype in (torch.float32, torch.float64):
+        errs = {}
+        for valid in ("all", "first", "scattered"):
+            st, f, infos, H, b, chi = imu_factor_problem(IMU_FACTOR_W, dtype, valid, seed=27)
+            ref = Wn.imu_factor_reference(st, f, infos, H, b, chi)
+            out = Wn.imu_factor(st, f, infos, H.clone(), b.clone(), chi.clone())
+            torch.cuda.synchronize()
+            for name, a, r in zip(("Hpp", "bp", "chi"), out, ref):
+                d, scale = float((a - r).abs().max()), float(r.abs().max())
+                if not d <= IMU_FACTOR_RTOL[dtype] * scale:
+                    raise AssertionError(f"imu_factor {dtype} {valid}: {name} differs by "
+                                         f"{d:.3e} (largest {scale:.3e})")
+                errs[f"{valid} {name}"] = d / max(scale, 1e-300)
+        st, f, infos, H, b, chi = imu_factor_problem(IMU_FACTOR_W, dtype, "all", seed=27)
+        ms = graph_ms(lambda: Wn.imu_factor(st, f, infos, H, b, chi))
+        enqueued_ms = cuda_ms(lambda: Wn.imu_factor(st, f, infos, H, b, chi), reps=50,
+                              warmup=5)
+        plain_ms = graph_ms(lambda: Wn.imu_factor_reference(st, f, infos, H, b, chi),
+                            calls=1, reps=10)
+        bound, bound_by = least_ms(imu_factor_flops(IMU_FACTOR_W),
+                                   imu_factor_bytes(IMU_FACTOR_W, dtype), dtype)
+        ops_ms = 1e3 * imu_factor_flops(IMU_FACTOR_W) / PEAK_FLOP_S[dtype]
+        rec[dtype] = dict(err=max(errs.values()), errs=errs, ms=ms, enqueued_ms=enqueued_ms,
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                          ops_bound_ms=ops_ms)
+        print(f"imu_factor {str(dtype)[6:]} W={IMU_FACTOR_W}: largest |d| of an output "
+              f"{max(errs.values()):.3e} of its largest entry; kernel {ms:.4f} ms as a graph "
+              f"node, {enqueued_ms:.4f} ms back to back; plain block {plain_ms:.4f} ms as a "
+              f"graph; bound {bound:.3e} ms ({bound_by}; by operations {ops_ms:.3e}) {tag}")
     return rec
 
 
@@ -2597,12 +2727,13 @@ def device_functions_on_card(tag: str) -> None:
                                  "bounds missed")
 
 
-def cli_on_card(tag: str, preint: dict) -> tuple[dict, dict]:
+def cli_on_card(tag: str, preint: dict, factor: dict) -> tuple[dict, dict]:
     """Phase 20.  ``python -m vio_tpu_torch.cli`` as three processes at
     once: ``run --dataset sim``, ``run --dataset hybrid`` on streams
     written here, and ``sim --out``.  Returns the launches of each run,
     read from its JSON line: the Gauss-Jordan kernel's and the RANSAC
-    kernel's; the preintegration kernel's go into ``preint``."""
+    kernel's; the preintegration kernel's go into ``preint`` and the IMU
+    factor kernel's into ``factor``."""
     import os
     import tempfile
 
@@ -2663,6 +2794,7 @@ def cli_on_card(tag: str, preint: dict) -> tuple[dict, dict]:
         launches[f"cli {k} {want}"] = r["gj_solve_launches"]
         ransac[f"cli {k} {want}"] = r["essential_ransac_launches"]
         preint[f"cli {k} {want}"] = r["preintegrate_launches"]
+        factor[f"cli {k} {want}"] = r["imu_factor_launches"]
         g, n = r["graphs"], max(r["frames"], 1)
         print(f"cli {k} graphs per pose: tracker {g['program_replays'] / n:.2f} replays, "
               f"{g['program_reads'] / n:.2f} reads; estimator {g['replays'] / n:.2f} "
@@ -2710,9 +2842,10 @@ class BenchProcess:
         self.err.close()
         shutil.rmtree(self.tmp, ignore_errors=True)
 
-    def check(self, tag: str) -> dict:
+    def check(self, tag: str, factor: dict) -> dict:
         """Wait for the process and hold its output.  Returns the launches
-        of the stages that solve, read from its details."""
+        of the stages that solve, read from its details; the IMU factor
+        kernel's go into ``factor``."""
         left = BENCH_TIMEOUT_S - (time.perf_counter() - self.t0)
         try:
             rc = self.proc.wait(timeout=max(left, 1.0))
@@ -2753,6 +2886,8 @@ class BenchProcess:
         if not ransac_by_stage.get(e2e_key, 0) > 0:
             raise AssertionError(f"bench: the RANSAC kernel did not launch in the init of "
                                  f"{e2e_key}: {ransac_by_stage}")
+        factor.update({f"bench {k} float32": n
+                       for k, n in d["imu_factor_launches_by_stage"].items() if n})
         return ({f"bench {k} float32": n for k, n in by_stage.items() if n},
                 {f"bench {k} float32": n for k, n in ransac_by_stage.items() if n})
 
@@ -2874,11 +3009,12 @@ def main() -> int:
     linsolve.gj_solve.launches = 0
     ransac_by_path = {}            # the RANSAC kernel's launches by path
     preint_by_path = {}            # the preintegration kernel's launches by path
+    factor_by_path = {}            # the IMU factor kernel's launches by path
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
         with ransac_counted(ransac_by_path, "run_sim float32"), \
-                preint_counted(preint_by_path, "run_sim float32"):
+                imu_kernels_counted(preint_by_path, factor_by_path, "run_sim float32"):
             est, traj = runner.run_sim(data, cfg, n_frames=N_FRAMES)
     finally:
         frame_step.frame_step_graphed = graphed
@@ -2957,10 +3093,16 @@ def main() -> int:
     print(f"chip_smoke: phase 26 (preintegration kernel) took "
           f"{time.perf_counter() - t_phase:.1f} s {tag}")
 
+    # ---- 27. the IMU factor kernel: in the graphs, against plain ----
+    t_phase = time.perf_counter()
+    factor_rec = imu_factor_on_card(frames, tag)
+    print(f"chip_smoke: phase 27 (IMU factor kernel) took "
+          f"{time.perf_counter() - t_phase:.1f} s {tag}")
+
     # ---- 6-8. the image frontend and the image main path ----
     frontend_on_card_against_cpu(est.device, tag)
     with ransac_counted(ransac_by_path, "run_images float64"), \
-            preint_counted(preint_by_path, "run_images float64"):
+            imu_kernels_counted(preint_by_path, factor_by_path, "run_images float64"):
         sync = image_main_path(None, tag)
     clahe_and_distortion_on_card(tag)
 
@@ -2976,12 +3118,12 @@ def main() -> int:
 
     # ---- 9-10. the async image path and loop closing ----
     with ransac_counted(ransac_by_path, "run_images_async float64"), \
-            preint_counted(preint_by_path, "run_images_async float64"):
+            imu_kernels_counted(preint_by_path, factor_by_path, "run_images_async float64"):
         async_launches = async_image_path(None, tag, sync)
     orb_on_card_against_cpu(est.device, tag)
     bench = BenchProcess()         # phase 21, beside phase 10
     with ransac_counted(ransac_by_path, "run_sim + LoopCloser float64"), \
-            preint_counted(preint_by_path, "run_sim + LoopCloser float64"):
+            imu_kernels_counted(preint_by_path, factor_by_path, "run_sim + LoopCloser float64"):
         loop = loop_closing_path(None, tag, LOOP_DTYPE)
 
 
@@ -3009,7 +3151,7 @@ def main() -> int:
     # ---- 17-21. online td, the EuRoC layout, device functions, the CLI, the bench ----
     def online_td():
         with ransac_counted(ransac_by_path, "online td float32"), \
-                preint_counted(preint_by_path, "online td float32"):
+                imu_kernels_counted(preint_by_path, factor_by_path, "online td float32"):
             by_path["online td float32"] = online_td_path(tag)
 
     def both(counts):
@@ -3018,7 +3160,7 @@ def main() -> int:
         ransac_by_path.update(rs)
 
     def euroc():
-        with preint_counted(preint_by_path, "run_euroc float64"):
+        with imu_kernels_counted(preint_by_path, factor_by_path, "run_euroc float64"):
             n, rs = euroc_layout_path(tag, sync)
         both(({"run_euroc float64": n}, rs))
 
@@ -3026,8 +3168,9 @@ def main() -> int:
             (17, "online td", online_td),
             (18, "EuRoC layout", euroc),
             (19, "device functions", lambda: device_functions_on_card(tag)),
-            (20, "the CLI", lambda: both(cli_on_card(tag, preint_by_path))),
-            (21, "the bench", lambda: both(bench.check(tag))),
+            (20, "the CLI",
+             lambda: both(cli_on_card(tag, preint_by_path, factor_by_path))),
+            (21, "the bench", lambda: both(bench.check(tag, factor_by_path))),
             (25, "the pose graph", lambda: rec.update(posegraph_on_card(loop["closer"], tag)))):
         t_phase = time.perf_counter()
         run()
@@ -3050,6 +3193,11 @@ def main() -> int:
         raise AssertionError(f"the preintegration kernel did not launch on every "
                              f"estimator path: {preint_by_path}")
     print(f"preintegrate launches by path: {json.dumps(preint_by_path)} {tag}")
+    if not all(n > 0 for n in factor_by_path.values()):
+        raise AssertionError(f"the IMU factor kernel did not launch on every estimator "
+                             f"path: {factor_by_path}")
+    print(f"imu_factor launches by path: {json.dumps(factor_by_path)} {tag}")
+    f64 = factor_rec[torch.float64]
     p64 = preint_rec[(PREINT_M[0], torch.float64, True)]
     print(json.dumps({"kernels": [{
         "name": "gj_solve", "route": "cuda",
@@ -3110,7 +3258,19 @@ def main() -> int:
         "enqueued_ms": p64["enqueued_ms"],
         "launches_by_path": preint_by_path,
         "shapes": {f"{str(dt)[6:]} W={PREINT_W} M={M} {'exact' if ex else 'independent'}":
-                   preint_rec[(M, dt, ex)] for M, dt, ex in preint_rec}}]}))
+                   preint_rec[(M, dt, ex)] for M, dt, ex in preint_rec}}, {
+        # the benchmark cell's window and type (float64) under the keys the
+        # record requires; float32 under "float32"
+        "name": "imu_factor", "route": "cuda",
+        "source": "vio_tpu_torch/csrc/imu_factor.cu",
+        "replaces": "none: vio_tpu/solver/window.py's IMU block, left to XLA",
+        "launches": sum(factor_by_path.values()),
+        "max_abs_err": f64["err"],
+        "ms": f64["ms"], "plain_ms": f64["plain_ms"],
+        "bound_ms": f64["bound_ms"], "bound_by": f64["bound_by"],
+        "enqueued_ms": f64["enqueued_ms"],
+        "launches_by_path": factor_by_path,
+        "float32": factor_rec[torch.float32]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0

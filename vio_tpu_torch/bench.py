@@ -62,6 +62,7 @@ from .features import klt
 from .ops import _build, linsolve, ransac
 from .parallel import global_ba
 from .solver import graph, lm
+from .solver import window as W
 
 BASELINE_FPS = 25.0        # reference solver budget: 0.04 s/frame
 DETAILS = "BENCH_TORCH_DETAILS.json"
@@ -443,14 +444,17 @@ def main(device=None, details_path: str = DETAILS) -> int:
     # the RANSAC kernel's launches (sweep and refit): the init's
     # bootstrap in the end-to-end stages
     ransac_by_stage = details["essential_ransac_launches_by_stage"] = {}
+    # the IMU factor kernel's launches: one an assembly of the window solves
+    imu_by_stage = details["imu_factor_launches_by_stage"] = {}
 
     def remaining():
         return budget - (time.monotonic() - t_start) if budget is not None else float("inf")
 
     # ---- the headline first, printed and flushed before any other stage ----
-    before = linsolve.gj_solve.launches
+    before, imu0 = linsolve.gj_solve.launches, W.imu_factor_kernel.launches
     w = bench_window(WINDOW_F, n=5, want_flops=True, device=device, dtype=dtype)
     by_stage["window_ba"] = linsolve.gj_solve.launches - before
+    imu_by_stage["window_ba"] = W.imu_factor_kernel.launches - imu0
     fps = 1e3 / w["wall_ms"]
     dev_note = (f"device {w['device_ms']:.3f} ms, wall/device {w['wall_ms'] / w['device_ms']:.2f}"
                 if w["device_ms"] else "no device time on the CPU")
@@ -490,6 +494,7 @@ def main(device=None, details_path: str = DETAILS) -> int:
         else:
             t0 = time.monotonic()
             n0, r0 = linsolve.gj_solve.launches, ransac.launches()
+            i0 = W.imu_factor_kernel.launches
             try:
                 details[key] = fn()
             except Exception as e:      # recorded, and the run exits 1
@@ -499,6 +504,7 @@ def main(device=None, details_path: str = DETAILS) -> int:
             details.setdefault("stage_wall_s", {})[key] = time.monotonic() - t0
             by_stage[key] = linsolve.gj_solve.launches - n0
             ransac_by_stage[key] = ransac.launches() - r0
+            imu_by_stage[key] = W.imu_factor_kernel.launches - i0
         flush_details(details, details_path)
 
     def _klt():
@@ -540,6 +546,7 @@ def main(device=None, details_path: str = DETAILS) -> int:
 
     details["gj_solve_launches"] = sum(by_stage.values())
     details["essential_ransac_launches"] = sum(ransac_by_stage.values())
+    details["imu_factor_launches"] = sum(imu_by_stage.values())
     details["total_wall_s"] = time.monotonic() - t_start
     flush_details(details, details_path)
     print(json.dumps(details, indent=2), file=sys.stderr)

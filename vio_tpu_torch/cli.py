@@ -14,7 +14,7 @@ The device work runs on the CUDA device unless ``--device cpu`` is given
 the simulation dataset and float64 for the image datasets, whose
 configurations need it (the tracker keeps its device's default);
 ``--dtype`` overrides it.  Each run prints one JSON line, which includes
-the Gauss-Jordan, RANSAC and preintegration kernels' launches and the
+the Gauss-Jordan, RANSAC, preintegration and IMU-factor kernels' launches and the
 CUDA graphs' keys, replays and host reads (``solver/graph.py``; 0 on the
 CPU).
 """
@@ -67,7 +67,7 @@ class _MaybeProfile:
 def _result(dataset, est, traj, wall, **extra):
     from . import imu
     from .ops import linsolve, ransac
-    from .solver import graph
+    from .solver import graph, window
     return dict(dataset=dataset, frames=len(traj["t"]),
                 failures=est.failure_count, wall_s=round(wall, 1),
                 fps=round(est.frame_solved / max(wall, 1e-9), 2),
@@ -75,6 +75,7 @@ def _result(dataset, est, traj, wall, **extra):
                 gj_solve_launches=linsolve.gj_solve.launches,
                 essential_ransac_launches=ransac.launches(),
                 preintegrate_launches=imu.preintegrate_kernel.launches,
+                imu_factor_launches=window.imu_factor_kernel.launches,
                 graphs={k: graph.STATS[k] for k in ("keys", "replays", "reads",
                                                     "program_replays", "program_reads")},
                 **extra)

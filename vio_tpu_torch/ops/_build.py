@@ -115,6 +115,10 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [vp] * 19 + [ci, ci, ci, vp]
         fn.restype = ci
+    for name in ("imu_factor_f32", "imu_factor_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * 18 + [ci, vp]
+        fn.restype = ci
     lib.gj_solve_error_string.argtypes = [ci]
     lib.gj_solve_error_string.restype = ctypes.c_char_p
     for name, scalar in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):

@@ -41,7 +41,10 @@ workspaces that must not be created inside a capture; the λ-attempts,
 and so the ``gj_solve`` kernel, run only in replays.
 ``ops.linsolve.gj_solve`` counts the launches a capture records
 (``gj_solve.captured``); each replay adds them to ``gj_solve.launches``;
-so does ``imu.preintegrate_kernel``, once in every frame key's head.
+so does ``imu.preintegrate_kernel``, once in every frame key's head, and
+``window.imu_factor_kernel``, once an assembly: 1 + ``CHUNK`` in a frame
+key's head (``lm.start``'s and the attempts'), ``CHUNK`` in its chunk and
+one in its tail where it marginalizes the oldest frame.
 
 A ``ProgramGraph`` is the one-shot counterpart, for a jitted function
 with no loop in it (the tracker's programs, ``features/tracker.py``): a
@@ -78,6 +81,7 @@ import torch
 from .. import imu, trace
 from ..ops import _build, linsolve, ransac
 from . import lm
+from . import window as W
 
 # λ-attempts between two host reads of the loop's condition (and in the
 # head).  Chosen on the card from K in {1, 2, 4, 8} (PERF.md §6).
@@ -102,7 +106,7 @@ STATS: Counter = Counter()
 # The kernel wrappers whose launches a graph holds: each counts the
 # launches it records into a capture (.captured) and its launches (.launches).
 COUNTED = (linsolve.gj_solve, ransac.sweep, ransac.refit, ransac.refit_best,
-           imu.preintegrate_kernel, linsolve.cholesky_solve)
+           imu.preintegrate_kernel, linsolve.cholesky_solve, W.imu_factor_kernel)
 
 _NP = {torch.float32: np.float32, torch.float64: np.float64,
        torch.bool: np.bool_, torch.int64: np.int64}

@@ -4,18 +4,23 @@ Port of ``vio_tpu/solver/window.py`` (reference: vins-mono/src/backend/
 problem.cc:303-389 MakeHessian).  Every reprojection factor lives on a
 dense ``(F, W+1)`` grid with a validity mask; per-factor Jacobians are
 expanded over the frame axis with one-hot outer products and the pose
-Hessian is one ``JᵀWJ`` matmul.  The landmark block is diagonal.
+Hessian is one ``JᵀWJ`` matmul.  The landmark block is diagonal.  The
+IMU factors' block (``imu_factor``) is, on CUDA tensors, one launch of a
+hand-written kernel (``imu_factor_kernel``, ``csrc/imu_factor.cu``) an
+assembly and, on CPU tensors, its plain version ``imu_factor_reference``.
 
 Pose-parameter packing (P = 6 + 15·(W+1)):
   [ext(0:6) | frame k: pose(6+15k : 12+15k), speedbias(12+15k : 21+15k)]
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from .. import factors
+from ..ops import _build
 from ..utils import lie
 
 
@@ -139,7 +144,109 @@ def _imu_infos(f: WindowFactors):
     does, instead of syncing with the host to raise."""
     C = f.imu_terms.covariance
     eye = torch.eye(15, dtype=C.dtype, device=C.device).expand(C.shape)
-    return torch.linalg.solve_ex(C, eye)[0]
+    infos = torch.linalg.solve_ex(C, eye)[0]
+    # the solver returns column-major matrices; the kernel reads rows (the
+    # CPU's plain einsums keep the solver's layout, and so their bits)
+    return infos.contiguous() if infos.is_cuda else infos
+
+
+# ---------------------------------------------------------------------------
+# The IMU factors' block of the normal equations: a CUDA kernel
+# (csrc/imu_factor.cu) on the card, its plain version on the CPU
+# ---------------------------------------------------------------------------
+
+def imu_factor_reference(states: WindowStates, f: WindowFactors, infos, Hpp, bp, chi):
+    """The kernel's plain version: the IMU factors' residuals and Jacobians
+    (edge_imu.cc), J expanded densely over the window's pose parameters,
+    and JᵀΩJ, −JᵀΩr and rᵀΩr added to Hpp, bp and chi (new tensors).
+    Intervals whose ``imu_valid`` is False add nothing."""
+    W1 = states.Ps.shape[0]
+    dtype = states.Ps.dtype
+    kw = dict(dtype=dtype, device=states.Ps.device)
+    eyeW = torch.eye(W1, **kw)
+    imu_args = _imu_args(states, f)
+    ir = factors.imu_residual(*imu_args)
+    Jpi_m, Jsbi_m, Jpj_m, Jsbj_m = factors.imu_jacobians(*imu_args)
+
+    W = W1 - 1
+    imu_m = f.imu_valid.to(dtype)
+    Ji = torch.cat([Jpi_m, Jsbi_m], dim=-1)                         # (W, 15, 15)
+    Jj = torch.cat([Jpj_m, Jsbj_m], dim=-1)
+    Jfr = (torch.einsum("wab,wk->wakb", Ji, eyeW[:W]) +
+           torch.einsum("wab,wk->wakb", Jj, eyeW[1:])).reshape(W, 15, W1 * 15)
+    Jimu = torch.cat([torch.zeros((W, 15, 6), **kw), Jfr], dim=-1)
+    Jimu = Jimu * imu_m[:, None, None]
+
+    WJi = torch.einsum("wrs,wsp->wrp", infos, Jimu)
+    Hpp = Hpp + torch.einsum("wrp,wrq->pq", Jimu, WJi)
+    info_ir = torch.einsum("wrs,ws->wr", infos, ir) * imu_m[:, None]
+    bp = bp - torch.einsum("wrp,wr->p", Jimu, info_ir)
+    imu_chi = torch.einsum("wr,wr->w", ir, info_ir)
+    chi = chi + torch.sum(torch.where(f.imu_valid, imu_chi, torch.zeros_like(imu_chi)))
+    return Hpp, bp, chi
+
+
+def imu_factor_kernel(terms: factors.ImuFactorTerms, g, Ps, Qs, Vs, Bas, Bgs,
+                      imu_valid, infos, Hpp, bp, chi) -> None:
+    """``imu_factor_reference`` as one launch of ``csrc/imu_factor.cu`` on
+    the current stream, without synchronising: updates Hpp (P, P), bp (P,)
+    and chi () IN PLACE, P = 6 + 15 (W + 1).  Takes contiguous float32 or
+    float64 CUDA tensors on one device (imu_valid bool): the W ≥ 1
+    intervals' terms (the covariance unused), g (3,), the W + 1 frames'
+    Ps, Vs, Bas, Bgs (W + 1, 3) and Qs (W + 1, 4), the information
+    ``infos`` (W, 15, 15); raises on anything else (types, shapes and
+    layout checked first, then the device, all before any build), on a
+    build failure and on a refused launch.  An interval whose
+    ``imu_valid`` is False is skipped, where the plain version multiplies
+    it by 0."""
+    floats = (terms.delta_p, terms.delta_q, terms.delta_v, terms.jacobian, terms.sum_dt,
+              terms.linearized_ba, terms.linearized_bg, g, Ps, Qs, Vs, Bas, Bgs, infos,
+              Hpp, bp, chi)
+    dtype = Hpp.dtype
+    if (dtype not in (torch.float32, torch.float64) or imu_valid.dtype != torch.bool
+            or any(t.dtype != dtype for t in floats)):
+        raise ValueError(f"imu_factor_kernel takes float32 or float64 and a bool mask, "
+                         f"got {[t.dtype for t in (*floats, imu_valid)]}")
+    W1 = Ps.shape[0] if Ps.dim() == 2 else 0
+    W, P = W1 - 1, num_pose_params(W1 - 1)
+    want = ((W, 3), (W, 4), (W, 3), (W, 15, 15), (W,), (W, 3), (W, 3), (3,),
+            (W1, 3), (W1, 4), (W1, 3), (W1, 3), (W1, 3), (W, 15, 15), (P, P), (P,), (),
+            (W,))
+    got = tuple(tuple(t.shape) for t in (*floats, imu_valid))
+    if W < 1 or got != want:
+        raise ValueError(f"imu_factor_kernel shapes: {got}, expected {want} (W >= 1)")
+    if not all(t.is_contiguous() for t in (*floats, imu_valid)):
+        raise ValueError("imu_factor_kernel takes contiguous tensors")
+    if not all(t.is_cuda and t.device == Hpp.device for t in (*floats, imu_valid)):
+        raise ValueError("imu_factor_kernel takes CUDA tensors on one device")
+    lib = _build.load()
+    fn = lib.imu_factor_f32 if dtype == torch.float32 else lib.imu_factor_f64
+    with torch.cuda.device(Hpp.device):
+        stream = torch.cuda.current_stream(Hpp.device).cuda_stream
+        rc = fn(*(t.data_ptr() for t in (*floats[:13], imu_valid, *floats[13:])),
+                W, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"imu_factor launch failed: CUDA error {rc} "
+                           f"({lib.gj_solve_error_string(rc).decode()})")
+    if torch.cuda.is_current_stream_capturing():
+        imu_factor_kernel.captured += 1   # recorded, not run: each replay launches it
+    else:
+        imu_factor_kernel.launches += 1
+
+
+imu_factor_kernel.launches = 0   # launches on the card, a graph's replays included
+imu_factor_kernel.captured = 0   # launches recorded into CUDA graphs (solver/graph.py)
+
+
+def imu_factor(states: WindowStates, f: WindowFactors, infos, Hpp, bp, chi):
+    """The IMU factors' terms added into the normal equations: on CUDA
+    tensors one launch of the kernel, which updates Hpp, bp and chi in
+    place (they are returned); on CPU tensors its plain version."""
+    if not Hpp.is_cuda:
+        return imu_factor_reference(states, f, infos, Hpp, bp, chi)
+    imu_factor_kernel(f.imu_terms, f.g, states.Ps, states.Qs, states.Vs, states.Bas,
+                      states.Bgs, f.imu_valid, infos, Hpp, bp, chi)
+    return Hpp, bp, chi
 
 
 def robust_chi2(states: WindowStates, f: WindowFactors,
@@ -299,26 +406,8 @@ def assemble(states: WindowStates, f: WindowFactors,
         chi = torch.sum(rho0 * ovalid)
 
     # ---------------- IMU factors ----------------
-    imu_args = _imu_args(states, f)
-    ir = factors.imu_residual(*imu_args)
-    Jpi_m, Jsbi_m, Jpj_m, Jsbj_m = factors.imu_jacobians(*imu_args)
-
-    W = W1 - 1
-    imu_m = f.imu_valid.to(dtype)
-    Ji = torch.cat([Jpi_m, Jsbi_m], dim=-1)                         # (W, 15, 15)
-    Jj = torch.cat([Jpj_m, Jsbj_m], dim=-1)
-    Jfr = (torch.einsum("wab,wk->wakb", Ji, eyeW[:W]) +
-           torch.einsum("wab,wk->wakb", Jj, eyeW[1:])).reshape(W, 15, W1 * 15)
-    Jimu = torch.cat([torch.zeros((W, 15, 6), **kw), Jfr], dim=-1)
-    Jimu = Jimu * imu_m[:, None, None]
-
     infos = _imu_infos(f) if imu_infos is None else imu_infos       # (W, 15, 15)
-    WJi = torch.einsum("wrs,wsp->wrp", infos, Jimu)
-    Hpp = Hpp + torch.einsum("wrp,wrq->pq", Jimu, WJi)
-    info_ir = torch.einsum("wrs,ws->wr", infos, ir) * imu_m[:, None]
-    bp = bp - torch.einsum("wrp,wr->p", Jimu, info_ir)
-    imu_chi = torch.einsum("wr,wr->w", ir, info_ir)
-    chi = chi + torch.sum(torch.where(f.imu_valid, imu_chi, torch.zeros_like(imu_chi)))
+    Hpp, bp, chi = imu_factor(states, f, infos, Hpp, bp, chi)
 
     # ---------------- prior fold (problem.cc:365-384) ----------------
     free = torch.ones((P,), **kw)
