@@ -134,8 +134,8 @@ them.  Phases, each of which raises on failure:
    Estimator.apply_live_correction with the closer's drift,
    LoopCloser.rebase, and the circuit's last frame solved with no
    failure.  The closer's pose-graph solves run on the card from captured
-   CUDA graphs (``posegraph.optimize_graphed``, the library's Cholesky,
-   ``linsolve.cholesky_solve``, inside).
+   CUDA graphs (``posegraph.optimize`` on ``graph.loop``, the library's
+   Cholesky, ``linsolve.cholesky_solve``, inside).
    Prints milliseconds per add_keyframe and per pose-graph solve (median
    and max), the pose graph's keys, graphs captured and seconds
    capturing, its attempts and host reads a solve and its
@@ -158,11 +158,11 @@ them.  Phases, each of which raises on failure:
    3.8e-3 m, by the order of their sums; scripts/torch_scale_out_cpu.py
    jax).
    ``solve`` runs on the card from captured CUDA graphs
-   (``global_ba.solve_graphed``): the first call captures the key's graphs
+   (``graph.loop``'s ``LoopGraph``): the first call captures the key's graphs
    and solves (its launches are the record's, all graph replays, one
    ``gj_solve`` an attempt), a second call is timed alone (one host read
-   per ``graph.CHUNK`` attempts is held).  Its eager twin
-   (``global_ba.solve_eager``) runs on the same inputs: both runs are held
+   per ``graph.CHUNK`` attempts is held).  Its eager twin (the same
+   program on ``graph.EagerLoop``) runs on the same inputs: both runs are held
    to the bounds above; in float64 they must also take the same
    iterations and end within GLOBAL_TWIN_DP64; in float32 the iterations
    and the largest |Δp| are printed.  Prints P, the regime, iterations,
@@ -181,8 +181,8 @@ them.  Phases, each of which raises on failure:
    then ``graph.clear()`` drops every captured key, so that later phases
    get the pools' memory back;
 24. PCG on the card, right after phase 12: ``pcg.pcg_solve`` (its own
-   captured graphs, ``pcg.pcg_solve_graphed``) against its eager twin
-   ``pcg.pcg_solve_eager`` on seeded SPD systems (``spd_system``) at P ∈
+   captured graphs) against its eager twin (the same program on
+   ``graph.EagerLoop``) on seeded SPD systems (``spd_system``) at P ∈
    PCG_SIZES in float32 and float64, held to the same iterations and the
    true relative residual ≤ PCG_RTOL of the type for both, float64 x to a
    float64 direct solve within κ·rtol; the largest |Δx| and each side's
@@ -1300,12 +1300,11 @@ def preintegrate_on_card(frames: list, tag: str) -> dict:
     from vio_tpu_torch import imu
     from vio_tpu_torch.solver import frame_step, graph
 
-    k = graph.COUNTED.index(imu.preintegrate_kernel)
     with graph._LOCK:
         loops = [(key, g) for key, g in graph._CACHE.items()
                  if isinstance(key[0], frame_step.FrameKey)]
     for key, lg in loops:
-        held = {name: n[k] for name, n in lg.launches.items()}
+        held = {name: n.get(imu.preintegrate_kernel, 0) for name, n in lg.launches.items()}
         if held != {"head": 1, "chunk": 0, "tail": 0}:
             raise AssertionError(f"preintegrate in the graphs of {key}: {held}")
     n0 = imu.preintegrate_kernel.launches
@@ -1412,12 +1411,11 @@ def imu_factor_on_card(frames: list, tag: str) -> dict:
     from vio_tpu_torch.solver import frame_step, graph
     from vio_tpu_torch.solver import window as Wn
 
-    k = graph.COUNTED.index(Wn.imu_factor_kernel)
     with graph._LOCK:
         loops = [(key, g) for key, g in graph._CACHE.items()
                  if isinstance(key[0], frame_step.FrameKey)]
     for key, lg in loops:
-        held = {name: n[k] for name, n in lg.launches.items()}
+        held = {name: n.get(Wn.imu_factor_kernel, 0) for name, n in lg.launches.items()}
         want = {"head": 1 + lg.chunk, "chunk": lg.chunk, "tail": int(key[0].marg_old)}
         if held != want:
             raise AssertionError(f"imu_factor in the graphs of {key}: {held}, not {want}")
@@ -1716,11 +1714,21 @@ def stage_timers(*targets):
             setattr(mod, name, fn)
 
 
+def global_ba_eager(p, device=None, dtype=None, **kw):
+    """``global_ba.solve(p, **kw)``'s program on ``graph.EagerLoop``: on the
+    card the captured graphs' twin, which a stage timer can time."""
+    from vio_tpu_torch.device import move, resolve
+    from vio_tpu_torch.parallel import global_ba
+    from vio_tpu_torch.solver import graph
+    device, dtype = resolve(device, dtype)
+    return global_ba.solve_with(graph.EagerLoop, move(p, device, dtype), **kw)
+
+
 def global_ba_run(label: str, gt, noisy, kw: dict, tag: str, ok, memory: bool = False) -> dict:
     """Phases 11-12: ``global_ba.solve`` on the card, which replays the
     key's captured graphs: a first, counted call (the capture and one
     replayed solve), a second call timed alone; then the eager twin
-    (``solve_eager``) on the same inputs, and one more eager run with every
+    (``global_ba_eager``) on the same inputs, and one more eager run with every
     stage synchronised for the per-attempt breakdown.  ``ok(out, stats)``
     holds a run to the phase's bounds (raises); both runs are held.
     Returns the counted run's result and launches, and its distance from
@@ -1763,7 +1771,7 @@ def global_ba_run(label: str, gt, noisy, kw: dict, tag: str, ok, memory: bool = 
         torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref, st_ref = global_ba.solve_eager(noisy, **kw)
+    ref, st_ref = global_ba_eager(noisy, **kw)
     torch.cuda.synchronize()
     wall_eager = time.perf_counter() - t0
     peak_eager = torch.cuda.max_memory_allocated() if memory else None
@@ -1771,7 +1779,7 @@ def global_ba_run(label: str, gt, noisy, kw: dict, tag: str, ok, memory: bool = 
                       (linsolve, "spd_solve")) as logs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        global_ba.solve_eager(noisy, **kw)
+        global_ba_eager(noisy, **kw)
         torch.cuda.synchronize()
         wall_i = 1e3 * (time.perf_counter() - t0)
     n_att = len(logs["spd_solve"])
@@ -1911,7 +1919,7 @@ def spd_system(P: int, cond: float, seed: int):
 
 def pcg_on_card(tag: str, direct64: dict) -> None:
     """Phase 24: Jacobi-PCG on the card, graphed (``pcg.pcg_solve``)
-    against its eager twin (``pcg.pcg_solve_eager``) at P = 600 and 1200 in
+    against its eager twin (``pcg.solve_with(graph.EagerLoop, ...)``) at P = 600 and 1200 in
     both types; ``global_ba.solve(use_pcg=True)`` at phase 11's float64
     problem; ``global_ba.solve`` at 200 keyframes (P = 1200, PCG through
     ``spd_solve``)."""
@@ -1934,8 +1942,9 @@ def pcg_on_card(tag: str, direct64: dict) -> None:
             first = time.perf_counter() - t0
             ms = cuda_ms(lambda: pcg.pcg_solve(H, b, rtol=rtol), reps=5, warmup=0)
             reads = (graph.STATS["reads"] - s0.get("reads", 0)) / 6
-            ms_eager = cuda_ms(lambda: pcg.pcg_solve_eager(H, b, rtol=rtol), reps=3, warmup=1)
-            x_ref, k_ref = pcg.pcg_solve_eager(H, b, rtol=rtol)
+            ms_eager = cuda_ms(lambda: pcg.solve_with(graph.EagerLoop, H, b, rtol=rtol),
+                               reps=3, warmup=1)
+            x_ref, k_ref = pcg.solve_with(graph.EagerLoop, H, b, rtol=rtol)
             nb = float(np.linalg.norm(bn))
             res = [float(np.linalg.norm(Hn @ v.double().cpu().numpy() - bn)) / nb
                    for v in (x, x_ref)]

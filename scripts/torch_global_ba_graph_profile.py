@@ -9,7 +9,7 @@ Run from the repository root on a machine with a CUDA device and nvcc:
 1. ``--phases``: ``chip_smoke.py``'s phases 11, 12 and 24 alone, with
    their holds and lines (the kernels are built first);
 2. ``turns``: ``global_ba.solve`` (graphed on the card) and
-   ``global_ba.solve_eager`` in turns (eager, graphed, graphed, eager) at
+   ``chip_smoke.global_ba_eager`` (the program on ``graph.EagerLoop``) in turns (eager, graphed, graphed, eager) at
    the bench's 100-keyframe problem (float32, max_iter 10) and at phase
    12's 1,048,576 observation slots (float32, max_iter 8; ``--no-1m``
    leaves it out): each turn's wall ms a solve (host clock around a
@@ -76,7 +76,7 @@ def wall_ms(fn, device, n: int = 3) -> float:
 
 def turns(label, p, kw, device, tag) -> None:
     """Eager, graphed, graphed, eager on one problem."""
-    runs = {"eager": lambda: global_ba.solve_eager(p, **kw),
+    runs = {"eager": lambda: chip_smoke.global_ba_eager(p, **kw),
             "graphed": lambda: global_ba.solve(p, **kw)}
     for name in ("eager", "graphed", "graphed", "eager"):
         fn = runs[name]
@@ -140,7 +140,7 @@ def fresh(first: str, tag: str) -> None:
         gt, _ = testing.make_global_problem(N=N, M=4 * N, obs_per_lm=8, dtype=torch.float32)
         return testing.perturb_global(gt, **chip_smoke.GLOBAL_PERTURB)
 
-    routes = {"graphed": global_ba.solve, "eager": global_ba.solve_eager}
+    routes = {"graphed": global_ba.solve, "eager": chip_smoke.global_ba_eager}
     p = problem(100)
     for i, name in enumerate((first, "eager" if first == "graphed" else "graphed")):
         ms, cap, st = timed(lambda: routes[name](p, **kw))
@@ -153,7 +153,7 @@ def fresh(first: str, tag: str) -> None:
         p = problem(N)
         ms1, cap, _ = timed(lambda: global_ba.solve(p, **kw))
         ms2, _, _ = timed(lambda: global_ba.solve(p, **kw))
-        ms_e, _, st = timed(lambda: global_ba.solve_eager(p, **kw))
+        ms_e, _, st = timed(lambda: chip_smoke.global_ba_eager(p, **kw))
         print(f"growing map N={N}: graphed first call {ms1:.3f} ms ({cap:.3f} s capturing, "
               f"a fresh key in a warm thread), second {ms2:.3f} ms; eager {ms_e:.3f} ms; "
               f"{st['iterations']} iterations; pools {graph.STATS['pool_bytes'] / 2**20:.1f} "

@@ -44,6 +44,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from vio_tpu_torch import bench, estimator, metrics, runner, sim  # noqa: E402
+from vio_tpu_torch.ops import linsolve  # noqa: E402
 from vio_tpu_torch.solver import frame_step, graph  # noqa: E402
 
 N_FRAMES = 150
@@ -85,10 +86,11 @@ def capture_check(device, tag) -> None:
     Ps_e, chi_e, it_e = solve["eager"]()
     fresh(graph.CHUNK)
     Ps_g, chi_g, it_g = solve["graphed"]()
-    d = float(np.abs(Ps_g - Ps_e.double().cpu().numpy()).max())
+    d = float((Ps_g.double() - Ps_e.double()).abs().max())
     print(f"capture: window solve graphed: iterations {it_g} (eager {int(it_e)}), chi2 "
           f"{float(chi_g):.6e} (eager {float(chi_e):.6e}), max |dPs| {d:.3e} m, gj_solve "
-          f"launches held by each graph {[g.launches for g in graph._CACHE.values()]} {tag}")
+          f"launches held by each graph "
+          f"{[{n: c.get(linsolve.gj_solve, 0) for n, c in g.launches.items()} for g in graph._CACHE.values()]} {tag}")
 
 
 def frames_check(data, tag) -> None:

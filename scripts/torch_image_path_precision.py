@@ -19,7 +19,8 @@ truth, failures, LM iterations, kernel launches and wall time.
 ``--probe`` adds, for three window solves of the float64 run, the window's
 cost and its IMU position residuals evaluated at the same state in both
 precisions: the residuals' size, their float32 error, and the square root
-of their information.  ``--device cpu`` runs everything on the CPU (the
+of their information (with ``--device cpu``: the card replays its frames
+from captured graphs, which the probe cannot read).  ``--device cpu`` runs everything on the CPU (the
 kernel's plain version).
 """
 from __future__ import annotations
@@ -39,7 +40,7 @@ sys.path.insert(0, str(ROOT))
 from vio_tpu_torch import metrics, runner, sim  # noqa: E402
 from vio_tpu_torch.config import sim_images_config  # noqa: E402
 from vio_tpu_torch.ops import linsolve  # noqa: E402
-from vio_tpu_torch.solver import frame_step, lm  # noqa: E402
+from vio_tpu_torch.solver import lm  # noqa: E402
 from vio_tpu_torch.solver import window as W  # noqa: E402
 
 PROBED_SOLVES = (10, 30, 45)
@@ -58,16 +59,20 @@ def _cast(x, dtype):
 
 
 class Probe:
-    """Stands in for ``lm.solve_window`` inside ``frame_step``: before the
-    chosen solves it evaluates the cost and the IMU residuals at the
-    incoming state in float64 and in float32."""
+    """Stands in for ``lm.start``, the window solve's first step in the
+    frame's loop program: before the chosen solves it evaluates the cost
+    and the IMU residuals at the incoming state in float64 and in float32.
+    It reads only where the program runs eagerly (the CPU): a captured
+    graph cannot read back to the host."""
 
     def __init__(self, tag):
         self.tag = tag
         self.calls = 0
-        self.solve_window = lm.solve_window
+        self.start = lm.start
 
-    def __call__(self, states, f, **kwargs):
+    def __call__(self, states, f, *args, **kwargs):
+        if states.Ps.is_cuda and torch.cuda.is_current_stream_capturing():
+            return self.start(states, f, *args, **kwargs)
         self.calls += 1
         if self.calls in PROBED_SOLVES and states.Ps.dtype == torch.float64:
             s32, f32 = _cast(states, torch.float32), _cast(f, torch.float32)
@@ -82,7 +87,7 @@ class Probe:
                   f"{float((r64 - r32).abs().max()):.3e} m, sqrt information "
                   f"{float(info.max().sqrt()):.3e} /m, |P| {float(states.Ps.abs().max()):.1f} m "
                   f"{self.tag}")
-        return self.solve_window(states, f, **kwargs)
+        return self.start(states, f, *args, **kwargs)
 
 
 def main() -> int:
@@ -115,7 +120,7 @@ def main() -> int:
 
         probing = args.probe and (before, after) == (torch.float64, torch.float64)
         if probing:
-            frame_step.lm.solve_window = Probe(tag)
+            lm.start = Probe(tag)
         linsolve.gj_solve.launches = 0
         t0 = time.perf_counter()
         try:
@@ -125,7 +130,7 @@ def main() -> int:
                 device=args.device, dtype=before, on_frame=switch)
         finally:
             if probing:
-                frame_step.lm.solve_window = frame_step.lm.solve_window.solve_window
+                lm.start = lm.start.start
         wall = time.perf_counter() - t0
         gt_p, _ = runner.sim_ground_truth_at(data, traj["t"])
         ape = metrics.ape_rmse(traj["p"], gt_p)["rmse"] if len(traj["t"]) > 2 else float("nan")

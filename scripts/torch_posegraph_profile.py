@@ -123,7 +123,7 @@ def turn(root: str, problem: str, reps: int, device: str) -> dict:
     args, w = [z[f"arr_{i}"] for i in range(6)], z["arr_6"]
     kw = dict(edge_weights=w, max_iter=40, device=device, dtype=torch.float64)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    graphed = hasattr(posegraph, "optimize_graphed")
+    graphed = hasattr(posegraph, "graph_key")
     rec = dict(root=root, card=card(), route="graphed" if graphed else "host LM",
                n=len(args[0]), edges=len(args[2]))
     if graphed:

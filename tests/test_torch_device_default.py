@@ -22,7 +22,7 @@ from vio_tpu_torch.loop import posegraph, vocab
 from vio_tpu_torch.loop.closer import LoopCloser
 from vio_tpu_torch.ops import ransac
 from vio_tpu_torch.parallel import global_ba, sharded
-from vio_tpu_torch.solver import bal, frame_step, graph, marginalize, pcg
+from vio_tpu_torch.solver import bal, frame_step, lm, marginalize, pcg
 
 torch.set_num_threads(1)
 
@@ -136,7 +136,7 @@ def test_dtype_rule(device, dtype, expect):
     sfm.construct, convert.to_tensor, convert.window_states_from_numpy,
     convert.window_factors_from_numpy, convert.global_ba_from_numpy,
     convert.bal_problem_from_numpy, convert.direct_problem_from_numpy, posegraph.optimize,
-    posegraph.optimize_graphed, posegraph.optimize_eager, vocab.Vocabulary.__init__,
+    posegraph.optimize_eager, vocab.Vocabulary.__init__,
     vocab.Vocabulary.train], ids=lambda f: f.__qualname__)
 def test_inner_functions_keep_no_device_default(fn):
     """The vocabulary's device work is integer only: it takes no dtype."""
@@ -160,8 +160,8 @@ def test_inner_functions_keep_no_device_default(fn):
     stereo.disparity_from_flow, stereo.disparity_to_pointcloud,
     stereo.points_to_pointcloud, stereo.pearson, icp.umeyama, icp.icp_gn,
     marginalize.marginalize_old, marginalize.marginalize_new,
-    marginalize.marginalize_old_host, global_ba.solve_graphed, pcg.pcg_solve_graphed,
-    pcg.pcg_solve, pcg.pcg_solve_eager],
+    marginalize.marginalize_old_host, pcg.pcg_solve, pcg.solve_with, lm.solve_window,
+    lm.solve_with, global_ba.solve_with],
     ids=lambda f: f.__qualname__)
 def test_frontend_functions_take_the_device_from_their_inputs(fn):
     """No frontend or solver function below the entry points has a device
@@ -179,7 +179,7 @@ def test_frontend_functions_take_the_device_from_their_inputs(fn):
                                    runner.run_sim, runner.run_euroc, Estimator.__init__,
                                    intrinsics.calibrate_chessboard,
                                    LoopCloser.__init__, LoopCloser.load, checkpoint.load,
-                                   global_ba.solve, global_ba.solve_eager,
+                                   global_ba.solve,
                                    global_ba.solve_sharded,
                                    sharded.solve_window_sharded, sharded.training_step,
                                    bal.solve, bal.load_bal, direct.direct_ba,
@@ -206,7 +206,7 @@ def test_scale_out_entry_points_raise_without_a_card(no_card, tmp_path):
                                                imu_per_interval=2, **cpu)
     calls = [lambda: testing.make_global_problem(N=8, M=16, obs_per_lm=2),
              lambda: testing.make_window_problem(window_size=2, max_features=8),
-             lambda: global_ba.solve(p), lambda: global_ba.solve_eager(p),
+             lambda: global_ba.solve(p),
              lambda: global_ba.solve_sharded(p),
              lambda: sharded.solve_window_sharded(states, f),
              lambda: sharded.training_step(states, f),

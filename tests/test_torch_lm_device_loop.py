@@ -1,6 +1,6 @@
 """The λ-loop as device-state transitions (vio_tpu_torch/solver/lm.py
-``_attempt``) and the frame's graph functions (solver/frame_step.py,
-solver/graph.py), on the CPU in float64.
+``_attempt``) and the frame's loop program (solver/frame_step.py), on the
+CPU in float64.
 
 The CPU runs eagerly the same functions the card captures and replays, so
 these tests hold what a replay computes:
@@ -20,22 +20,19 @@ these tests hold what a replay computes:
   n_obs 768).  The port before the masked loop gave the same bits;
 - bit-equality on the bench's problem in float32 (the card's type: 16
   attempts, 6 of them rejected): between chunk sizes, with attempts made
-  after the loop has stopped, between IMU buffers padded to the estimator's bucket and not,
-  and between the graph's head / chunk / tail run eagerly and
-  ``frame_step``;
-- that the graph's functions read nothing back to the host (a capture
-  would refuse it), and the graph key of ``frame_step.frame_key``."""
+  after the loop has stopped, and between IMU buffers padded to the
+  estimator's bucket and not;
+- the graph key of ``frame_step.frame_key``.  That the programs read
+  nothing back to the host is tests/test_torch_loop_executors.py's."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.overrides import TorchFunctionMode
 
 from vio_tpu import testing as jt
 from vio_tpu.solver import lm as jlm
 from vio_tpu_torch import bench, convert, estimator, runner, sim
 from vio_tpu_torch.solver import frame_step as fs
-from vio_tpu_torch.solver import graph
 from vio_tpu_torch.solver import lm as tlm
 
 torch.set_num_threads(1)
@@ -206,35 +203,6 @@ def test_imu_bucket_padding_changes_no_bit(frames):
         _bit_equal(_fetch(padded, kw), ref)
 
 
-class _NoHostReads(TorchFunctionMode):
-    """Refuses what a CUDA graph capture refuses: reading a tensor back to
-    the host, and making a tensor from host data."""
-    READS = {"item", "tolist", "numpy", "cpu", "__bool__", "__int__", "__float__",
-             "__index__", "nonzero"}
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        name = getattr(func, "__name__", "")
-        if name in self.READS or func in (torch.tensor, torch.as_tensor):
-            raise AssertionError(f"host read or upload inside the graph: {name}")
-        return func(*args, **(kwargs or {}))
-
-
-@pytest.mark.parametrize("chunk", [1, 3])
-def test_graph_functions_are_frame_step(frames, chunk):
-    """The head, chunk and tail a frame's graphs capture, run eagerly
-    (with the host read of the loop's condition between them, as a replay
-    has), give frame_step's bits, and make no host read themselves."""
-    for args, kw in frames[:3]:
-        key = fs.frame_key(*args[:2], **kw)
-        head, step, tail = fs._frame_fns(key)
-        views = [convert.to_tensor(a, "cpu", torch.float64) for a in (*args[0], *args[1:])]
-        out = _run_eagerly(head, step, tail, views, chunk)
-        ref = fs.frame_step(*args, **kw)
-        _bit_equal([*out], [*ref.states, ref.b_prior, ref.err_prior, ref.chi2,
-                            ref.chi2_init, ref.iterations, ref.lam, ref.feat_errs,
-                            ref.marg_Hpp, ref.marg_bp])
-
-
 def test_frame_key_holds_what_jit_holds_static(frames):
     keys = [fs.frame_key(*a[:2], **k) for a, k in frames]
     i, j = next((i, j) for i in range(len(keys)) for j in range(i + 1, len(keys))
@@ -251,28 +219,3 @@ def test_frame_key_holds_what_jit_holds_static(frames):
         assert fs.frame_key(*a0[:2], **{**k0, **change}) != key0, change
     wider = np.zeros(a0[1].shape[:1] + (a0[1].shape[1] + estimator.IMU_BUCKET,))
     assert fs.frame_key(a0[0], wider, **k0) != key0
-
-
-def _run_eagerly(head, step, tail, views, chunk):
-    """What a LoopGraph's replays compute, with no capture, and the guard
-    that the captured functions make no host read."""
-    with _NoHostReads():
-        s, aux, live = head(views, chunk)
-    while bool(live):
-        with _NoHostReads():
-            s, live = step(s, aux, chunk)
-    with _NoHostReads():
-        return tail(s, aux)
-
-
-def test_window_graph_functions_are_solve_window(bench32):
-    """graph.solve_window's head, chunk and tail, on the leaves of (states,
-    factors) as its LoopGraph holds them."""
-    st, ft, n_obs = bench32
-    tree = (st, ft)
-    views = [x.clone() for x in graph._leaves(tree)]
-    for chunk in (1, 3):
-        out = _run_eagerly(*graph.window_fns(tree, 10, True, 1.0, n_obs), views, chunk)
-        ref_s, ref_b, ref_e, stats = tlm.solve_window(st, ft, max_iter=10, n_obs=n_obs)
-        _bit_equal(out, [*ref_s, ref_b, ref_e, stats["chi2"], stats["chi2_init"],
-                         stats["iterations"], stats["lam"]])

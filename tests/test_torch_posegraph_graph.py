@@ -7,26 +7,24 @@ Held: the padded, branch-free route takes the same iterations as
 ``vio_tpu``, its chi²/λ log within 1e-10 relative and its poses within
 1e-8, weighted and unweighted, with the first pose fixed or free, at the
 iteration cap (1 and 2) and from a start at the optimum, where every
-attempt is rejected; padded equals unpadded within 1e-10; the graphs'
-head, chunk and tail, run eagerly with a host read of the condition
-between them as a replay has, make no host read and equal the eager
-route to the bit at any chunk; an attempt after the loop has ended
-changes no bit; the keys hold what is static and are shared within a
-bucket, and a closer's graph, at most two edges a pose, is keyed by its
-poses alone; ``prepare`` captures nothing on the CPU; the graphed route
-refuses the CPU; the card's damped solve (the
+attempt is rejected; padded equals unpadded within 1e-10; an attempt
+after the loop has ended changes no bit; the keys hold what is static
+and are shared within a bucket, and a closer's graph, at most two edges
+a pose, is keyed by its poses alone; ``prepare`` captures nothing on the
+CPU; a ``LoopGraph`` refuses the CPU; the card's damped solve (the
 library's Cholesky) and the CPU's are held to each other and to the plain
 pose graph of benchmark/reference/posegraph.py, and no size is refused;
 ``spd_solve`` still sends P > 1024 to PCG.  The ``gpu`` tests run the
-graphs against the eager twin and the CPU route, at 700 and 1,000 poses
-too, and the kernel at its ceiling, on the card; they skip here."""
+graphs against the eager twin and the CPU route at 700 and 1,000 poses,
+and the kernel at its ceiling, on the card; they skip here
+(tests/test_torch_loop_executors.py holds the graphs to the eager loop
+on the card, bit for bit)."""
 import re
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
-from torch.overrides import TorchFunctionMode
 
 from test_torch_loop import _circuit
 from vio_tpu.loop import posegraph as jposegraph
@@ -37,61 +35,6 @@ from vio_tpu_torch.solver import generic, graph
 
 torch.set_num_threads(1)
 CPU = dict(device="cpu", dtype=torch.float64)
-
-
-class _NoHostReads(TorchFunctionMode):
-    """Refuses what a CUDA graph capture refuses: reading a tensor back to
-    the host, and making a tensor from host data."""
-    READS = {"item", "tolist", "numpy", "cpu", "__bool__", "__int__", "__float__",
-             "__index__", "nonzero"}
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        name = getattr(func, "__name__", "")
-        if name in self.READS or func in (torch.tensor, torch.as_tensor):
-            raise AssertionError(f"host read or upload inside the graph: {name}")
-        return func(*args, **(kwargs or {}))
-
-
-class _EagerLoop:
-    """``graph.LoopGraph``'s interface with no capture, for CPU tensors:
-    the head, chunk and tail run eagerly under ``_NoHostReads``, with a
-    host read of the condition after the head and after each chunk, as the
-    replays have; the tail's outputs come back as float64 host arrays."""
-
-    def __init__(self, key, specs, head, chunk, tail, device, kept=None, k=None):
-        self.fns = (head, chunk, tail)
-        self.chunk = graph.CHUNK if k is None else k
-        self.inputs = self
-        self.views = [torch.empty(shape, dtype=dt, device=device) for shape, dt in specs]
-        self.attempts = self.reads = 0
-        self.carry = None
-
-    def upload(self, arrays) -> None:
-        for v, a in zip(self.views, arrays):
-            v.copy_(torch.as_tensor(np.asarray(a)))
-
-    def run(self, keep=()):
-        head, step, tail = self.fns
-        self.attempts, self.reads = self.chunk, 1
-        with _NoHostReads():
-            s, aux, live = head(self.views, self.chunk)
-        while bool(live):
-            self.attempts += self.chunk
-            self.reads += 1
-            with _NoHostReads():
-                s, live = step(s, aux, self.chunk)
-        with _NoHostReads():
-            out = tail(s, aux)
-        self.carry = s
-        return [t.to(torch.float64).numpy() for t in out]
-
-
-@pytest.fixture
-def eager_graphs(monkeypatch):
-    """Route ``optimize_graphed`` through ``_EagerLoop`` on the CPU."""
-    monkeypatch.setattr(graph, "loop_graph", _EagerLoop)
-    monkeypatch.setattr(graph, "require_cuda", lambda device, what: None)
-    return monkeypatch
 
 
 def _circuit_args(n=40):
@@ -185,22 +128,13 @@ def test_padded_equals_unpadded(monkeypatch, weighted):
     np.testing.assert_allclose(stp["log"].lam, stu["log"].lam, rtol=1e-10, atol=0)
 
 
-@pytest.mark.parametrize("chunk", [1, 3])
-def test_graph_functions_are_the_eager_route(eager_graphs, chunk):
-    """The graphs' head, chunk and tail, run eagerly with no host read
-    inside them, against the eager loop (one read an attempt): the same
-    bits, attempts in whole chunks, one read a chunk."""
-    args, w = _circuit_args()
-    eager_graphs.setattr(graph, "CHUNK", chunk)
-    Pg, qg, stg = posegraph.optimize_graphed(*args, edge_weights=w, max_iter=40, **CPU)
-    Pe, qe, ste = posegraph.optimize_eager(*args, edge_weights=w, max_iter=40, **CPU)
-    np.testing.assert_array_equal(Pg, Pe)
-    np.testing.assert_array_equal(qg, qe)
-    assert stg["log"] == ste["log"] and stg["chi2"] == ste["chi2"]
-    assert stg["iterations"] == ste["iterations"]
-    assert stg["attempts"] == chunk * stg["reads"] == chunk * -(-ste["attempts"] // chunk)
-    assert stg["key"] == posegraph.graph_key(64, 128, torch.float64, True, 40,
-                                             posegraph.STOP_DELTA_CHI, "cpu")
+def _to_the_end(q, x0):
+    """Attempts until the loop's condition, read after each one, is
+    false: the final state and the attempts made."""
+    s, n = generic.start(q, x0), 0
+    while not n or bool(generic.live(s, q.max_iter)):
+        s, n = generic.attempt(s, q), n + 1
+    return s, n
 
 
 def test_attempts_after_the_end_change_no_bit():
@@ -209,7 +143,7 @@ def test_attempts_after_the_end_change_no_bit():
     arrays = posegraph.padded(*_square())
     g = posegraph.PoseGraph(*(torch.as_tensor(a) for a in arrays))
     q, x0, _ = posegraph.problem(g, 40)
-    s, n = generic.solve_device(q, x0)
+    s, n = _to_the_end(q, x0)
     assert bool(s.stop) and n == 20
     again = generic.attempts(s, q, 3)
     for a, b in zip(again, s):
@@ -218,7 +152,7 @@ def test_attempts_after_the_end_change_no_bit():
     arrays = posegraph.padded(*args, edge_weights=w)
     g = posegraph.PoseGraph(*(torch.as_tensor(a) for a in arrays))
     q, x0, _ = posegraph.problem(g, 2)
-    s, n = generic.solve_device(q, x0)
+    s, n = _to_the_end(q, x0)
     assert int(s.it) == 2 and not bool(s.stop)
     for a, b in zip(generic.attempts(s, q, 2), s):
         assert torch.equal(a, b)
@@ -238,8 +172,8 @@ def test_keys_are_shared_within_a_bucket():
     for kw in (dict(dtype=torch.float32), dict(fix_first=False), dict(max_iter=41),
                dict(stop_delta_chi=1e-6), dict(device="meta")):
         assert key(40, **kw) != key(40)
-    with pytest.raises(ValueError, match="CUDA"):
-        posegraph.optimize_graphed(*_square(), **CPU)
+    with pytest.raises(ValueError, match="CUDA"):     # a LoopGraph refuses the CPU
+        posegraph._solve(graph.loop_graph, posegraph.padded(*_square()), True, 40, **CPU)
 
 
 @pytest.mark.parametrize("n", [40, 64, 65])
@@ -421,21 +355,3 @@ def test_prepare_captures_the_key_that_a_later_solve_replays():
     _, _, st = posegraph.optimize(*args, edge_weights=w, **kw)
     assert graph.STATS["captures"] == c0 and st["iterations"] > 0
     assert posegraph.prepare(150, **kw) == 0
-
-
-@pytest.mark.gpu
-def test_graphed_pose_graph_against_its_eager_twin_and_the_cpu():
-    """float64, a drifting circuit of 189 poses (the loop circuit's last
-    size): the graphs and the eager twin on the card take the same
-    iterations and end within 1e-9 m; the CPU route within 1e-8."""
-    _card()
-    args, w = _circuit_args(189)
-    kw = dict(edge_weights=w, max_iter=40, dtype=torch.float64)
-    Pg, qg, stg = posegraph.optimize(*args, device="cuda", **kw)
-    Pe, qe, ste = posegraph.optimize_eager(*args, device="cuda", **kw)
-    Pc, qc, stc = posegraph.optimize(*args, device="cpu", **kw)
-    assert stg["key"] is not None and stg["reads"] == -(-stg["attempts"] // graph.CHUNK)
-    assert stg["iterations"] == ste["iterations"] == stc["iterations"]
-    assert np.abs(Pg - Pe).max() <= 1e-9
-    assert abs(stg["chi2"] - ste["chi2"]) <= 1e-9 * abs(ste["chi2"])
-    assert np.abs(Pg - Pc).max() <= 1e-8 and np.abs(qg - qc).max() <= 1e-8

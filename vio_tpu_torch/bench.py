@@ -171,14 +171,13 @@ def window_problem(max_features: int, device=None, dtype=None):
 
 def window_solve(states, f, pert, n_obs, eager: bool = False):
     """One perturbed solve, so the LM loop runs all its iterations (a
-    converged start would stop after one).  On the card it is the path the
-    estimator runs, the captured graphs replayed (``graph.solve_window``),
-    unless ``eager``; on the CPU ``lm.solve_window``.  Returns (Ps, chi2,
-    iterations)."""
+    converged start would stop after one).  ``lm.solve_window``: on the
+    card the path the estimator runs, the captured graphs replayed, unless
+    ``eager`` (the same program on ``graph.EagerLoop``); on the CPU the
+    eager loop.  Returns (Ps, chi2, iterations)."""
     s = states._replace(Ps=states.Ps + pert)
-    solve = (graph.solve_window if states.Ps.is_cuda and not eager
-             else lm.solve_window)
-    new, _, _, stats = solve(s, f, max_iter=WINDOW_MAX_ITER, n_obs=n_obs)
+    loop = graph.EagerLoop if eager else graph.loop
+    new, _, _, stats = lm.solve_with(loop, s, f, max_iter=WINDOW_MAX_ITER, n_obs=n_obs)
     return new.Ps, stats["chi2"], stats["iterations"]
 
 

@@ -180,6 +180,7 @@ def preintegrate_reference(dts, accs, gyrs, mask, acc0, gyr0, ba, bg, noise_d,
     return st
 
 
+@_build.counted
 def preintegrate_kernel(dts, accs, gyrs, mask, acc0, gyr0, ba, bg, noise_d,
                         exact_noise: bool = True) -> PreintState:
     """``preintegrate`` with the CUDA kernel (``csrc/preintegrate.cu``), on
@@ -225,10 +226,6 @@ def preintegrate_kernel(dts, accs, gyrs, mask, acc0, gyr0, ba, bg, noise_d,
     else:
         preintegrate_kernel.launches += 1
     return out
-
-
-preintegrate_kernel.launches = 0   # launches on the card, a graph's replays included
-preintegrate_kernel.captured = 0   # launches recorded into CUDA graphs (solver/graph.py)
 
 
 def preintegrate(dts, accs, gyrs, mask, acc0, gyr0, ba, bg, noise_d,

@@ -27,17 +27,15 @@ whose damped step is 0; a padded edge adds nothing; so chi², max|diag H|,
 buckets let a growing graph (a loop closer's keyframes and loops) share
 keys; a closer's graph has at most two edges a keyframe (its odometry
 edge and one loop), so its key follows its poses alone, and ``prepare``
-captures the keys a graph will reach before its solves do.  Three
-routes, as ``parallel/global_ba.py``'s:
-
-- ``optimize_graphed``: the card, from the captured graphs of
-  ``graph_key`` (``solver/graph.py``); one host read of the loop's
-  condition per ``graph.CHUNK`` attempts, one upload, one read of the
-  results; the damped solve is the library's Cholesky
-  (``linsolve.cholesky_solve``) inside the same graphs, at every size;
-- ``optimize_eager``: the same attempts op by op on any device (the
-  graphs' twin on the card);
-- ``optimize``: the graphs on a CUDA device, the eager loop on the CPU.
+captures the keys a graph will reach before its solves do.  A solve is
+one program (``generic.graph_fns``) on one of ``solver/graph.py``'s
+executors, as ``parallel/global_ba.py``'s is: ``optimize`` on the card
+replays the captured graphs of ``graph_key``, one host read of the
+loop's condition per ``graph.CHUNK`` attempts, one upload, one read of
+the results, the damped solve the library's Cholesky
+(``linsolve.cholesky_solve``) inside the same graphs at every size; on
+the CPU the eager loop runs the same attempts op by op, as
+``optimize_eager`` does on any device (the graphs' twin on the card).
 
 ``STATS`` counts, over the process, the solves, their unpadded poses,
 LM attempts and iterations, the graphs the solves captured and the
@@ -175,55 +173,42 @@ def graph_key(n_pad: int, m_pad: int, dtype, fix_first: bool, max_iter: int,
             float(stop_delta_chi), torch.device(device))
 
 
-def _count(N: int, P: int, stats: dict, captures: int = 0, capture_s: float = 0.0) -> None:
-    STATS["solves"] += 1
-    STATS["poses"] += N
-    STATS["attempts"] += stats["attempts"]
-    STATS["iterations"] += stats["iterations"]
-    STATS["captures"] += captures
-    STATS["capture_s"] += capture_s
-    ATTEMPTS_BY_P[P] += stats["attempts"]
-
-
-def _result(N: int, Ps, qs, stats: dict):
-    return (np.asarray(Ps, dtype=np.float64)[:N], np.asarray(qs, dtype=np.float64)[:N],
-            stats)
-
-
-def _run_graphed(arrays, fix_first: bool, max_iter: int, device, dtype):
-    """The padded problem ``arrays`` solved from its key's captured graphs:
-    (outputs, stats, P, graphs captured, their seconds)."""
+def _solve(loop, arrays, fix_first: bool, max_iter: int, device, dtype):
+    """The padded problem ``arrays`` solved on the executor ``loop``
+    (``graph.loop``, or ``graph.EagerLoop``): the padded poses (host
+    float64) and the stats; ``STATS`` gains the graphs captured and their
+    seconds."""
     device = torch.device(device)
-    graph.require_cuda(device, "posegraph.optimize_graphed")
     if device.type == "cuda" and device.index is None:   # the key holds the index
         device = torch.device("cuda", torch.cuda.current_device())
     key = graph_key(len(arrays[0]), len(arrays[2]), dtype, fix_first, max_iter,
                     STOP_DELTA_CHI, device)
     fns = generic.graph_fns(lambda views: problem(PoseGraph(*views), max_iter))
-    g = graph.loop_graph(key, [graph.spec_of(a, dtype) for a in arrays], *fns, device)
-    linsolve.warm_cholesky(device, dtype)
+    g = loop(key, [graph.spec_of(a, dtype) for a in arrays], *fns, device)
+    graphed = isinstance(g, graph.LoopGraph)
+    if graphed:
+        linsolve.warm_cholesky(device, dtype)
     g.inputs.upload(arrays)
     c0, s0 = graph.STATS["captures"], graph.STATS["capture_s"]
     Ps, qs, chi, it, log_chi, log_lam = g.run()
-    stats = dict(generic.device_stats(chi, it, log_chi, log_lam, g.attempts, g.reads), key=key)
-    return ((Ps, qs), stats, 6 * len(arrays[0]), graph.STATS["captures"] - c0,
-            graph.STATS["capture_s"] - s0)
+    STATS["captures"] += graph.STATS["captures"] - c0
+    STATS["capture_s"] += graph.STATS["capture_s"] - s0
+    stats = dict(generic.device_stats(chi, it, log_chi, log_lam, g.attempts, g.reads),
+                 key=key if graphed else None)
+    return Ps, qs, stats
 
 
-def optimize_graphed(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weights=None,
-                     fix_first: bool = True, max_iter: int = 50, *, device, dtype):
-    """``optimize`` on the card from the captured graphs of ``graph_key``:
-    the padded host arrays in one upload, the LM's attempts replayed with
-    one host read of the loop's condition per ``graph.CHUNK`` attempts,
-    the results back in one read.  Raises on a CPU device (there is no
-    eager fallback).  The damped solve, the library's Cholesky, is
-    captured with the rest; its handle is made before any capture
-    (``linsolve.warm_cholesky``)."""
+def _optimize(loop, Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weights, fix_first,
+              max_iter, device, dtype):
     arrays = padded(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weights, fix_first)
-    (Ps, qs), stats, P, captures, capture_s = _run_graphed(arrays, fix_first, max_iter,
-                                                           device, dtype)
-    _count(len(Ps0), P, stats, captures, capture_s)
-    return _result(len(Ps0), Ps, qs, stats)
+    Ps, qs, stats = _solve(loop, arrays, fix_first, max_iter, device, dtype)
+    N = len(Ps0)
+    STATS["solves"] += 1
+    STATS["poses"] += N
+    STATS["attempts"] += stats["attempts"]
+    STATS["iterations"] += stats["iterations"]
+    ATTEMPTS_BY_P[6 * len(arrays[0])] += stats["attempts"]
+    return Ps[:N], qs[:N], stats
 
 
 def prepare(n_poses: int, fix_first: bool = True, max_iter: int = 50, *, device,
@@ -241,28 +226,17 @@ def prepare(n_poses: int, fix_first: bool = True, max_iter: int = 50, *, device,
     arrays = padded(np.zeros((n, 3)), np.tile([0.0, 0.0, 0.0, 1.0], (n, 1)), chain,
                     chain + 1, np.zeros((n - 1, 3)), np.tile([0.0, 0.0, 0.0, 1.0], (n - 1, 1)),
                     fix_first=fix_first)
-    _, _, _, captures, capture_s = _run_graphed(arrays, fix_first, max_iter, device, dtype)
-    STATS["captures"] += captures
-    STATS["capture_s"] += capture_s
-    return captures
+    c0 = STATS["captures"]
+    _solve(graph.loop_graph, arrays, fix_first, max_iter, device, dtype)
+    return STATS["captures"] - c0
 
 
 def optimize_eager(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weights=None,
                    fix_first: bool = True, max_iter: int = 50, *, device, dtype):
-    """``optimize``'s attempts op by op on ``device`` with one host read of
-    the loop's condition after each: the CPU's route, and on the card the
-    graphs' twin."""
-    device = torch.device(device)
-    arrays = padded(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weights, fix_first)
-    g = PoseGraph(*(torch.as_tensor(a, dtype=graph.spec_of(a, dtype)[1], device=device)
-                    for a in arrays))
-    q, x0, unpack = problem(g, max_iter)
-    s, n = generic.solve_device(q, x0)
-    Ps, qs, chi, it, log_chi, log_lam = (t.cpu().numpy() for t in (
-        *unpack(s.x), s.chi, s.it, s.log_chi, s.log_lam))
-    stats = dict(generic.device_stats(chi, it, log_chi, log_lam, n, n), key=None)
-    _count(len(Ps0), 6 * len(arrays[0]), stats)
-    return _result(len(Ps0), Ps, qs, stats)
+    """``optimize`` on ``graph.EagerLoop`` on any device: the card's twin of
+    a capture."""
+    return _optimize(graph.EagerLoop, Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq,
+                     edge_weights, fix_first, max_iter, device, dtype)
 
 
 def optimize(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq,
@@ -274,9 +248,8 @@ def optimize(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq,
     arrays.  Returns (Ps, qs, stats): the poses as host float64 numpy;
     stats chi2, iterations and the chi²/λ log as ``vio_tpu`` returns
     them, with the attempts made, the host reads of the loop's condition
-    and the graphs' key (None on the eager route).  On a CUDA device the
-    captured graphs (``optimize_graphed``), on the CPU the eager loop
-    (``optimize_eager``): the same padded, branch-free attempts."""
-    route = optimize_graphed if torch.device(device).type == "cuda" else optimize_eager
-    return route(Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weights, fix_first,
-                 max_iter, device=device, dtype=dtype)
+    and the graphs' key (None on the eager loop).  The executor is
+    ``graph.loop``'s: on a CUDA device the captured graphs, on the CPU the
+    eager loop; the same padded, branch-free attempts."""
+    return _optimize(graph.loop, Ps0, qs0, edges_i, edges_j, edges_dP, edges_dq, edge_weights,
+                     fix_first, max_iter, device, dtype)

@@ -33,6 +33,22 @@ PAIRER_LIB = BUILD_DIR / "libvio_tpu_torch_pairer.so"
 GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-pthread"]
 _LOCK = threading.Lock()   # one build at a time within a process
 
+# The kernel wrappers whose launches a CUDA graph holds (``solver/graph.py``),
+# each registered by ``counted`` where it is defined.
+COUNTED: list = []
+
+
+def counted(fn):
+    """Register a kernel wrapper with the graph cache: ``fn.launches``
+    counts its launches on the card, a graph's replays included, and
+    ``fn.captured`` the launches it records into CUDA graphs; the wrapper
+    adds to one or the other at each launch, and each replay of a graph
+    adds the launches the graph holds."""
+    fn.launches = 0
+    fn.captured = 0
+    COUNTED.append(fn)
+    return fn
+
 
 def _sources() -> list[Path]:
     srcs = sorted(CSRC.glob("*.cu"))

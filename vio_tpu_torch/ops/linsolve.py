@@ -85,6 +85,7 @@ def gj_solve_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return gj_solve_blocked_reference(A, b)
 
 
+@_build.counted
 def gj_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b (A (P, P) SPD, b (P,)) with the CUDA kernel, on the
     current stream, without synchronising.  Takes float32 or float64
@@ -119,10 +120,7 @@ def gj_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
-gj_solve.launches = 0   # launches on the card, a graph's replays included
-gj_solve.captured = 0   # launches recorded into CUDA graphs (solver/graph.py)
-
-
+@_build.counted
 def cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b (A (P, P) SPD, b (P,)) with the library's Cholesky
     factorisation and its two triangular solves (``torch.linalg.cholesky_ex``
@@ -141,9 +139,6 @@ def cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             cholesky_solve.launches += 1
     return x
 
-
-cholesky_solve.launches = 0   # solves on the card, a graph's replays included
-cholesky_solve.captured = 0   # solves recorded into CUDA graphs (solver/graph.py)
 
 _CHOLESKY_WARM: set = set()
 

@@ -145,6 +145,7 @@ def _raise(lib, rc: int, name: str) -> None:
                            f"({lib.gj_solve_error_string(rc).decode()})")
 
 
+@_build.counted
 def sweep(x0, x1, valid, idx, thresh, null_out=None):
     """E (n_hyp, 3, 3) of every 8-point sample idx (n_hyp, 8) (the null
     vector of its 8 × 9 system, projected onto the essential manifold) and
@@ -188,6 +189,7 @@ def _check_rows(N, name) -> None:
         raise ValueError(f"{name} takes at most {MAX_REFIT_N} rows (MAX_REFIT_N), got {N}")
 
 
+@_build.counted
 def refit(x0, x1, valid, w, thresh, null_out=None):
     """E (3, 3) of the weighted (N, 9) system (weights w (N,)), its inlier
     mask (N,) and count () int64 under ``thresh``.  The kernel on CUDA
@@ -216,6 +218,7 @@ def refit(x0, x1, valid, w, thresh, null_out=None):
     return E, inl, count
 
 
+@_build.counted
 def refit_best(x0, x1, valid, Es, counts, thresh, null_out=None):
     """``refit`` on the consensus set of the best hypothesis, in one
     launch: the first of the largest ``counts`` (n_hyp,) int64, the valid
@@ -250,14 +253,6 @@ def refit_best(x0, x1, valid, Es, counts, thresh, null_out=None):
     _raise(lib, rc, "ransac.refit_best")
     _count(refit_best)
     return E, inl, count
-
-
-sweep.launches = 0    # launches on the card, a graph's replays included
-sweep.captured = 0    # launches recorded into CUDA graphs (solver/graph.py)
-refit.launches = 0
-refit.captured = 0
-refit_best.launches = 0
-refit_best.captured = 0
 
 
 def launches() -> int:

@@ -33,11 +33,11 @@ is ``_attempt``: one λ-attempt as a transition of the device-resident
 ``LMState``, its ``lax.cond`` accept/reject turned into ``torch.where``
 selects on every leaf and every update gated by the loop's condition, so
 an attempt made after the loop has ended changes no bit (as
-``solver/lm.py``'s).  The one attempt serves every loop: ``solve`` on the
-card replays it from captured CUDA graphs (``solve_graphed``, on
-``solver/graph.py``'s ``LoopGraph``), and the eager loop (``solve_eager``,
-``solve_sharded``, the CPU) runs it with one host read of the loop's
-condition after each attempt.
+``solver/lm.py``'s).  A solve is one program of those attempts
+(``graph_fns``) on one of ``solver/graph.py``'s executors
+(``solve_with``): ``solve`` on the card replays it from captured CUDA
+graphs, and the eager loop (``solve_sharded``, PCG's damped solves, the
+CPU) runs it op by op, with the same host reads of the loop's condition.
 
 Reference lineage for the math: reprojection factor edge_reprojection.cc,
 Schur solve problem.cc:409-446 — re-derived at scale.
@@ -347,80 +347,54 @@ def attempts(s: LMState, q: Problem, k: int) -> LMState:
     return s
 
 
-def _stats(chi, chi2_init, it: int, lam, attempts: int, reads: int, wire: list) -> dict:
-    """The stats every route returns: chi2, chi2_init and lam as 0-d
-    tensors on the problem's device and in its dtype; as ints the
-    ``iterations`` (the attempts the loop counts, as ``vio_tpu`` counts
-    them), the attempts made (a graph's chunk may make more, which change
-    nothing), the host reads of the loop's condition, and the all_reduces
-    with the bytes of the last."""
-    return dict(chi2=chi, chi2_init=chi2_init, iterations=it, lam=lam, attempts=attempts,
-                reads=reads, allreduces=len(wire), allreduce_bytes=wire[-1] if wire else 0)
+def graph_fns(max_iter: int, fix_frames: int, loss_delta: float, use_pcg: bool = False,
+              group=None, wire=None):
+    """The head, chunk and tail of a solve's loop (``vio_tpu/parallel/
+    global_ba.py:208-252`` under ``jax.jit``); the inputs are the leaves of
+    a ``GlobalBA``."""
+    def begin(views):
+        s, q, chi2_init = start(GlobalBA(*views), max_iter, fix_frames, loss_delta, use_pcg,
+                                group, wire)
+        return s, (q, chi2_init)
 
-
-def _lm(p: GlobalBA, group, max_iter: int, fix_frames: int, loss_delta: float,
-        use_pcg: bool):
-    """The eager loop over p: one host read of the loop's condition after
-    each attempt."""
-    s, q, chi2_init = start(p, max_iter, fix_frames, loss_delta, use_pcg, group)
-    n = 0
-    while n < max_iter:
-        s = _attempt(s, q)
-        n += 1
-        if not bool(live(s, max_iter)):
-            break
-    return (p._replace(Ps=s.Ps, Qs=s.Qs, inv_dep=s.inv_dep),
-            _stats(s.chi, chi2_init, int(s.it), s.lam, n, n, q.wire))
-
-
-def graph_fns(max_iter: int, fix_frames: int, loss_delta: float):
-    """The head, chunk and tail of a solve's ``graph.LoopGraph``
-    (``vio_tpu/parallel/global_ba.py:208-252`` under ``jax.jit``); the
-    inputs are the leaves of a ``GlobalBA``.  The damped solve is the
-    direct kernel's (``use_pcg=False``)."""
-    def head(views, k):
-        s, q, chi2_init = start(GlobalBA(*views), max_iter, fix_frames, loss_delta)
-        s = attempts(s, q, k)
-        return s, (q, chi2_init), live(s, max_iter)
-
-    def step(s, aux, k):
-        s = attempts(s, aux[0], k)
-        return s, live(s, max_iter)
-
-    def tail(s, aux):
-        return [s.it]
-
-    return head, step, tail
+    return graph.loop_fns(begin, lambda s, aux, k: attempts(s, aux[0], k),
+                          lambda s, aux: live(s, max_iter), lambda s, aux: [s.it])
 
 
 def graph_key(p: GlobalBA, max_iter: int, fix_frames: int, loss_delta: float) -> tuple:
     """What ``jax.jit`` holds static for ``vio_tpu``'s ``solve``
-    (``max_iter``, ``fix_frames``, ``loss_delta``; ``use_pcg`` is False on
-    this route) and what it traces: each leaf's shape and dtype, and the
-    device."""
+    (``max_iter``, ``fix_frames``, ``loss_delta``; ``use_pcg`` is False
+    where the loop is captured) and what it traces: each leaf's shape and
+    dtype, and the device."""
     return ("global_ba", int(max_iter), int(fix_frames), float(loss_delta),
             tuple((tuple(t.shape), t.dtype) for t in p), p.Ps.device)
 
 
-def solve_graphed(p: GlobalBA, max_iter: int = 20, fix_frames: int = 1,
-                  loss_delta: float = 1.0):
-    """``solve`` on the card from the captured graphs of ``graph_key``: the
-    problem's device tensors in (one device-to-device copy each into the
-    key's inputs), a ``GlobalBA`` out whose poses and inverse depths are
-    fresh device tensors (the tables are p's), stats as ``solve_eager``'s.
-    Raises on a CPU problem; there is no eager fallback."""
-    graph.require_cuda(p.Ps.device, "global_ba.solve_graphed")
+def solve_with(loop, p: GlobalBA, max_iter: int = 20, fix_frames: int = 1,
+               loss_delta: float = 1.0, use_pcg: bool = False, group=None):
+    """The solve of p (on its device and in its dtype) on the executor
+    ``loop`` (``graph.loop``, or ``graph.EagerLoop``, the card's twin of a
+    capture, which a stage timer can time: a synchronise inside a capture
+    is an error): the problem's tensors in, a ``GlobalBA`` out whose poses
+    and inverse depths are fresh device tensors (the tables are p's), and
+    the stats: chi2, chi2_init and lam as 0-d tensors on the problem's
+    device and in its dtype; as ints the ``iterations`` (the attempts the
+    loop counts, as ``vio_tpu`` counts them), the attempts made (a chunk
+    may make more, which change nothing), the host reads of the loop's
+    condition, and the all_reduces with the bytes of the last."""
+    wire = []
     key = graph_key(p, max_iter, fix_frames, loss_delta)
-    g = graph.loop_graph(key, list(key[4]), *graph_fns(max_iter, fix_frames, loss_delta),
-                         p.Ps.device,
-                         kept=lambda s, aux: [s.Ps, s.Qs, s.inv_dep, s.chi, aux[1], s.lam])
+    g = loop(key, list(key[4]), *graph_fns(max_iter, fix_frames, loss_delta, use_pcg, group,
+                                            wire),
+             p.Ps.device, kept=lambda s, aux: [s.Ps, s.Qs, s.inv_dep, s.chi, aux[1], s.lam])
     g.inputs.load(list(p))
     scalar = p.Ps.new_empty(())
     out = [torch.empty_like(t) for t in (p.Ps, p.Qs, p.inv_dep, scalar, scalar, scalar)]
     (it,) = g.run(keep=out)
     Ps, Qs, inv_dep, chi, chi2_init, lam = out
-    return (p._replace(Ps=Ps, Qs=Qs, inv_dep=inv_dep),
-            _stats(chi, chi2_init, int(it), lam, g.attempts, g.reads, []))
+    return p._replace(Ps=Ps, Qs=Qs, inv_dep=inv_dep), dict(
+        chi2=chi, chi2_init=chi2_init, iterations=int(it), lam=lam, attempts=g.attempts,
+        reads=g.reads, allreduces=len(wire), allreduce_bytes=wire[-1] if wire else 0)
 
 
 def solve(p: GlobalBA, max_iter: int = 20, fix_frames: int = 1,
@@ -428,42 +402,28 @@ def solve(p: GlobalBA, max_iter: int = 20, fix_frames: int = 1,
           dtype=None):
     """Nielsen-LM over the global problem (``vio_tpu``'s jitted ``solve``).
     The problem is moved to ``device`` and ``dtype`` first (without them,
-    the card in float32).  Returns (p, stats), stats as ``_stats`` says
-    whatever the route.
+    the card in float32).  Returns (p, stats), stats as ``solve_with``
+    says whatever the executor.
 
-    The route follows the static arguments, before any work, as
+    The executor follows the static arguments, before any work, as
     ``jax.jit`` compiles one program per ``use_pcg``; it is never chosen
-    on an error:
-    - on a CUDA device with ``use_pcg=False`` and 6N ≤ 1024 (the direct
-      kernel's range): ``solve_graphed``, the key's captured graphs
-      replayed, one host read of the loop's condition per ``graph.CHUNK``
-      attempts.  A key is captured at its first call and pays off where
-      calls repeat its shapes; a map that grows makes a key at every size
-      (``graph.POOL_BUDGET`` bounds the pools they hold);
-    - otherwise the eager loop (``solve_eager``'s): on the CPU, and on the
-      card where the damped solve is Jacobi-PCG (``use_pcg``, or 6N > 1024
-      through ``linsolve.spd_solve``), whose data-dependent loop a graph
-      of the LM cannot hold; PCG runs from its own graphs there.
-    ``graph.STATS`` counts each route (``global_ba_graphed``,
-    ``global_ba_eager``)."""
+    on an error: ``graph.loop`` where a graph can hold the program (on a
+    CUDA device the key's captured graphs replayed, one host read of the
+    loop's condition per ``graph.CHUNK`` attempts; a key is captured at
+    its first call and pays off where calls repeat its shapes; a map that
+    grows makes a key at every size, ``graph.POOL_BUDGET`` bounds the
+    pools they hold), the eager loop where the damped solve is Jacobi-PCG
+    (``use_pcg``, or 6N > ``linsolve.DIRECT_MAX_P`` through
+    ``spd_solve``), whose data-dependent loop reads the host; on the card
+    PCG then runs from its own graphs.  ``graph.STATS`` counts each route
+    (``global_ba_graphed``, ``global_ba_eager``)."""
     device, dtype = resolve(device, dtype)
     p = move(p, device, dtype)
-    if device.type == "cuda" and not use_pcg and 6 * p.Ps.shape[0] <= linsolve.DIRECT_MAX_P:
-        graph.STATS["global_ba_graphed"] += 1
-        return solve_graphed(p, max_iter, fix_frames, loss_delta)
-    graph.STATS["global_ba_eager"] += 1
-    return _lm(p, None, max_iter, fix_frames, loss_delta, use_pcg)
-
-
-def solve_eager(p: GlobalBA, max_iter: int = 20, fix_frames: int = 1,
-                loss_delta: float = 1.0, use_pcg: bool = False, device=None,
-                dtype=None):
-    """``solve``'s eager loop on any device: the same attempts run op by
-    op, one host read of the loop's condition after each.  On the card it
-    is the graphs' twin, which a stage timer can time (a synchronise inside
-    a capture is an error)."""
-    device, dtype = resolve(device, dtype)
-    return _lm(move(p, device, dtype), None, max_iter, fix_frames, loss_delta, use_pcg)
+    capturable = not use_pcg and 6 * p.Ps.shape[0] <= linsolve.DIRECT_MAX_P
+    graphed = capturable and device.type == "cuda"
+    graph.STATS["global_ba_graphed" if graphed else "global_ba_eager"] += 1
+    return solve_with(graph.loop if capturable else graph.EagerLoop, p, max_iter, fix_frames,
+                      loss_delta, use_pcg)
 
 
 # ---------------------------------------------------------------------------
@@ -563,10 +523,10 @@ def solve_sharded(p_loc: GlobalBA, group=None, max_iter: int = 20,
     local.  A rank that fails makes the others' next collective wait out
     the group's timeout (set it in ``init_process_group``).
 
-    The attempt is ``solve``'s, in the eager loop with one read of the
-    loop's condition per attempt: gloo cannot be captured into a graph.
-    Returns (this rank's part of the problem, stats), stats as ``solve``'s
-    with the all_reduce count and bytes."""
+    The program is ``solve``'s, with the group, on the eager loop
+    (``graph.EagerLoop``): gloo cannot be captured into a graph.  Returns
+    (this rank's part of the problem, stats), stats as ``solve``'s with
+    the all_reduce count and bytes."""
     device, dtype = resolve(device, dtype)
-    return _lm(move(p_loc, device, dtype), dist.group.WORLD if group is None else group,
-               max_iter, fix_frames, loss_delta, use_pcg)
+    return solve_with(graph.EagerLoop, move(p_loc, device, dtype), max_iter, fix_frames,
+                      loss_delta, use_pcg, dist.group.WORLD if group is None else group)

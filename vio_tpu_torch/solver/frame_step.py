@@ -4,13 +4,14 @@ re-fix → outlier errors → marginalization Hessian, in ONE call.
 Port of ``vio_tpu/solver/frame_step.py`` (reference per-frame flow:
 vins-mono/src/estimator.cpp:492-503 solveOdometry → :549-600 double2vector
 gauge re-fix → :1075-1143 backendOptimization/marginalization).  The JAX
-version is one jitted program.  Here ``frame_step`` is the plain function
-(the CPU's path, and the card's reference): it takes the raw host arrays,
-uploads them, and returns a ``FrameOut`` of device tensors that ``fetch``
-brings to the host in one copy.  ``frame_step_graphed`` runs the same
-functions as captured CUDA graphs (``solver/graph.py``), cached by
-``frame_key``, what ``jax.jit`` holds static; it is the estimator's path
-on the card.
+version is one jitted program; here it is one loop program
+(``_frame_fns``) on one of ``solver/graph.py``'s executors.
+``frame_step`` runs it on the eager loop (the CPU's path, and the card's
+reference): it takes the raw host arrays, uploads them, and returns a
+``FrameOut`` of device tensors that ``fetch`` brings to the host in one
+copy.  ``frame_step_graphed`` replays the same functions as captured CUDA
+graphs, cached by ``frame_key``, what ``jax.jit`` holds static; it is the
+estimator's path on the card.
 
 The marginalization prior CHAIN runs on the host in float64
 (solver/marginalize.py); this call only produces the marg subproblem's
@@ -24,7 +25,6 @@ import numpy as np
 import torch
 
 from .. import factors, imu
-from ..convert import to_tensor
 from ..utils import lie
 from . import graph, lm
 from . import window as W
@@ -157,53 +157,17 @@ def _finish(states: W.WindowStates, f: W.WindowFactors, solved: W.WindowStates,
     return fixed, errs, marg_Hpp, marg_bp
 
 
-def frame_step(states: W.WindowStates,
-               dts, accs, gyrs, mask, acc0, gyr0, imu_valid,
-               pts_i, pts_j, start, obs_mask, feat_valid,
-               H_prior, b_prior, err_prior, Jt_prior_inv,
-               g, noise_diag, proj_sqrt_info,
-               max_iter: int = 10, fix_ext: bool = True,
-               loss_delta: float = 1.0, n_obs: int | None = None,
-               marg_old: bool = True, exact_noise: bool = True,
-               *, device, dtype) -> FrameOut:
-    """One full estimator frame, eagerly.  ``states`` and every array
-    argument are raw host data (numpy): one upload per argument, one host
-    read per λ-attempt, a ``FrameOut`` of device tensors."""
-    up = lambda x: to_tensor(x, device, dtype)   # noqa: E731
-    states = W.WindowStates(*map(up, states))
-    f = _factors(states, *map(up, (dts, accs, gyrs, mask, acc0, gyr0, imu_valid,
-                                   pts_i, pts_j, start, obs_mask, feat_valid,
-                                   H_prior, b_prior, err_prior, Jt_prior_inv,
-                                   g, noise_diag, proj_sqrt_info)), exact_noise)
-
-    # ---- LM solve ----
-    solved, b_out, err_out, stats = lm.solve_window(
-        states, f, max_iter=max_iter, fix_ext=fix_ext,
-        loss_delta=loss_delta, n_obs=n_obs)
-    fixed, errs, marg_Hpp, marg_bp = _finish(states, f, solved, b_out, err_out,
-                                             loss_delta, n_obs, marg_old)
-    return FrameOut(states=fixed, b_prior=b_out, err_prior=err_out,
-                    chi2=stats["chi2"], chi2_init=stats["chi2_init"],
-                    iterations=stats["iterations"], lam=stats["lam"],
-                    feat_errs=errs, marg_Hpp=marg_Hpp, marg_bp=marg_bp)
-
-
 def _frame_fns(key: FrameKey):
-    """The head, chunk and tail of a frame's ``graph.LoopGraph``; the
-    inputs are frame_step's array arguments, the states' leaves first."""
+    """The head, chunk and tail of a frame's loop; the inputs are
+    frame_step's array arguments, the states' leaves first."""
     n_states = len(W.WindowStates._fields)
 
-    def head(views, k):
+    def begin(views):
         states = W.WindowStates(*views[:n_states])
         f = _factors(states, *views[n_states:], key.exact_noise)
         s, p, chi2_init = lm.start(states, f, key.max_iter, key.fix_ext,
                                    key.loss_delta, key.n_obs)
-        s = lm.attempts(s, p, k)
-        return s, (states, p, chi2_init), lm.live(s, key.max_iter)
-
-    def step(s, aux, k):
-        s = lm.attempts(s, aux[1], k)
-        return s, lm.live(s, key.max_iter)
+        return s, (states, p, chi2_init)
 
     def tail(s, aux):
         states, p, chi2_init = aux
@@ -213,7 +177,52 @@ def _frame_fns(key: FrameKey):
         return [*fixed, s.b_prior, s.err_prior, s.chi, chi2_init, s.it, s.lam,
                 errs, marg_Hpp, marg_bp]
 
-    return head, step, tail
+    return graph.loop_fns(begin, lambda s, aux, k: lm.attempts(s, aux[1], k),
+                          lambda s, aux: lm.live(s, key.max_iter), tail)
+
+
+def _loop(loop, states, arrays, kw):
+    """The executor ``loop`` of a frame's program (``graph.EagerLoop`` or
+    ``graph.loop_graph``), its inputs uploaded: ``states`` and the array
+    arguments, ``kw`` frame_step's keywords."""
+    key = frame_key(states, arrays[0], **kw)
+    host = [*states, *arrays]
+    g = loop(key, [graph.spec_of(a, kw["dtype"]) for a in host], *_frame_fns(key), key.device)
+    g.inputs.upload(host)
+    return g
+
+
+def _frame_out(out, reads: int = 0) -> FrameOut:
+    """The tail's outputs as a ``FrameOut``: tensors (``iterations`` 0-d)
+    or host arrays (``iterations`` an int)."""
+    n = len(W.WindowStates._fields)
+    b_prior, err_prior, chi2, chi2_init, it, lam, errs, mH, mb = out[n:]
+    return FrameOut(states=W.WindowStates(*out[:n]), b_prior=b_prior, err_prior=err_prior,
+                    chi2=chi2, chi2_init=chi2_init,
+                    iterations=it if torch.is_tensor(it) else int(it), lam=lam,
+                    feat_errs=errs, marg_Hpp=mH, marg_bp=mb, reads=reads)
+
+
+def frame_step(states: W.WindowStates,
+               dts, accs, gyrs, mask, acc0, gyr0, imu_valid,
+               pts_i, pts_j, start, obs_mask, feat_valid,
+               H_prior, b_prior, err_prior, Jt_prior_inv,
+               g, noise_diag, proj_sqrt_info,
+               max_iter: int = 10, fix_ext: bool = True,
+               loss_delta: float = 1.0, n_obs: int | None = None,
+               marg_old: bool = True, exact_noise: bool = True,
+               *, device, dtype) -> FrameOut:
+    """One full estimator frame, eagerly: the frame's loop on
+    ``graph.EagerLoop``.  ``states`` and every array argument are raw
+    host data (numpy): one upload per argument, one host read of the
+    loop's condition per ``graph.CHUNK`` attempts, a ``FrameOut`` of
+    device tensors (``reads`` 0)."""
+    arrays = (dts, accs, gyrs, mask, acc0, gyr0, imu_valid, pts_i, pts_j, start, obs_mask,
+              feat_valid, H_prior, b_prior, err_prior, Jt_prior_inv, g, noise_diag,
+              proj_sqrt_info)
+    kw = dict(max_iter=max_iter, fix_ext=fix_ext, loss_delta=loss_delta, n_obs=n_obs,
+              marg_old=marg_old, exact_noise=exact_noise, device=device, dtype=dtype)
+    return _frame_out(_loop(graph.EagerLoop, states, arrays, kw).run_tensors())
 
 
 def frame_step_graphed(states: W.WindowStates, *arrays,
@@ -228,21 +237,11 @@ def frame_step_graphed(states: W.WindowStates, *arrays,
     float64 arrays (``iterations`` an int), with the loop's host reads of
     its condition in ``reads``.  Raises where there is no
     CUDA device; there is no eager fallback."""
-    key = frame_key(states, arrays[0], max_iter, fix_ext, loss_delta, n_obs,
-                    marg_old, exact_noise, device=device, dtype=dtype)
-    if key.device.type != "cuda":
-        raise ValueError(f"frame_step_graphed runs on a CUDA device, not {key.device}")
-    host = [*states, *arrays]
-    lg = graph.loop_graph(key, [graph.spec_of(a, dtype) for a in host],
-                          *_frame_fns(key), key.device)
-    lg.inputs.upload(host)
+    lg = _loop(graph.loop_graph, states, arrays,
+               dict(max_iter=max_iter, fix_ext=fix_ext, loss_delta=loss_delta, n_obs=n_obs,
+                    marg_old=marg_old, exact_noise=exact_noise, device=device, dtype=dtype))
     out = lg.run()
-    n = len(W.WindowStates._fields)
-    b_prior, err_prior, chi2, chi2_init, it, lam, errs, mH, mb = out[n:]
-    return FrameOut(states=W.WindowStates(*out[:n]), b_prior=b_prior,
-                    err_prior=err_prior, chi2=chi2, chi2_init=chi2_init,
-                    iterations=int(it), lam=lam, feat_errs=errs, marg_Hpp=mH,
-                    marg_bp=mb, reads=lg.reads)
+    return _frame_out(out, lg.reads)
 
 
 def fetch(out: FrameOut) -> FrameOut:

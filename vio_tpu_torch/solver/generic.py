@@ -8,8 +8,8 @@ functions may return torch tensors on any device; the loop itself and its
 dense solve run on the host in float64 numpy.  The SfM bootstrap BA and
 the calibrations use it (either strategy).
 
-The device form (``start``, ``attempt``, ``solve_device``, ``graph_fns``)
-runs the same Nielsen loop with no host read inside it, for the pose
+The device form (``start``, ``attempt``, ``graph_fns``) runs the same
+Nielsen loop with no host read inside it, for the pose
 graph (``loop/posegraph.py``): one λ-attempt is a transition of the
 device-resident ``LMState``, its accept/reject turned into ``torch.where``
 selects and every update gated by the loop's condition, so an attempt
@@ -18,10 +18,10 @@ made after the loop has ended changes no bit (as ``solver/lm.py``'s and
 every candidate and selected on accept; the damped solve (H + λI) dx = b
 (H + λI is SPD, its contract) is the library's Cholesky on a CUDA tensor
 (``linsolve.cholesky_solve``, captured with the rest) and
-``torch.linalg.solve`` on the CPU, ``vio_tpu``'s own ``np.linalg.solve``.  ``solve_device`` runs it eagerly
-with one host read of the loop's condition after each attempt;
-``graph_fns`` gives the head, chunk and tail of a ``graph.LoopGraph``.
-The ALPHA strategy stays on the host loop.
+``torch.linalg.solve`` on the CPU, ``vio_tpu``'s own ``np.linalg.solve``.
+``graph_fns`` gives the loop's head, chunk and tail, the program that
+``solver/graph.py``'s executors run.  The ALPHA strategy stays on the
+host loop.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ import torch
 
 from ..ops import linsolve
 from ..utils.tree import select
+from . import graph
 
 
 class LMLog(NamedTuple):
@@ -239,18 +240,6 @@ def attempts(s: LMState, q: DenseProblem, k: int) -> LMState:
     return s
 
 
-def solve_device(q: DenseProblem, x0) -> tuple[LMState, int]:
-    """The eager loop: attempts until the loop's condition, read after
-    each one, is false.  Returns the final state and the attempts made
-    (= the host reads)."""
-    s, n = start(q, x0), 0
-    while True:
-        s = attempt(s, q)
-        n += 1
-        if not bool(live(s, q.max_iter)):
-            return s, n
-
-
 def device_stats(chi, it, log_chi, log_lam, attempts: int, reads: int) -> dict:
     """``lm_solve_dense``'s stats from the device loop's results, read back
     to the host: chi2, iterations and the log cut to the iterations made,
@@ -263,21 +252,15 @@ def device_stats(chi, it, log_chi, log_lam, attempts: int, reads: int) -> dict:
 
 
 def graph_fns(make: Callable):
-    """The head, chunk and tail of a device solve's ``graph.LoopGraph``.
+    """The head, chunk and tail of a device solve's loop.
     ``make(views)`` builds the solve from the graph's input views:
     (DenseProblem, x0, outputs), ``outputs(x)`` the tensors the caller
     wants of the solution.  The tail gives those, then chi², the
     iterations and the chi²/λ log."""
-    def head(views, k):
+    def begin(views):
         q, x0, outputs = make(views)
-        s = attempts(start(q, x0), q, k)
-        return s, (q, outputs), live(s, q.max_iter)
+        return start(q, x0), (q, outputs)
 
-    def chunk(s, aux, k):
-        s = attempts(s, aux[0], k)
-        return s, live(s, aux[0].max_iter)
-
-    def tail(s, aux):
-        return [*aux[1](s.x), s.chi, s.it, s.log_chi, s.log_lam]
-
-    return head, chunk, tail
+    return graph.loop_fns(begin, lambda s, aux, k: attempts(s, aux[0], k),
+                          lambda s, aux: live(s, aux[0].max_iter),
+                          lambda s, aux: [*aux[1](s.x), s.chi, s.it, s.log_chi, s.log_lam])

@@ -1,29 +1,34 @@
-"""Captured CUDA graphs for the LM loop: the port's counterpart of
-``jax.jit``'s cache and of the JAX loop's one device program.
+"""The executors of the port's device loops: captured CUDA graphs, the
+port's counterpart of ``jax.jit``'s cache and of the JAX loop's one device
+program, and their eager twin.
 
 ``vio_tpu`` runs a frame as one jitted program (``vio_tpu/solver/
-frame_step.py:72``), its λ-attempts inside a ``lax.while_loop``.  Here a
-``LoopGraph`` holds three graphs captured once per key, the key being what
-``jax.jit`` would hold static (the static arguments, the shapes, the dtype
-and the device):
+frame_step.py:72``), its λ-attempts inside a ``lax.while_loop``.  Here
+each such loop is one program, a ``(head, chunk, tail)`` triple of
+branch-free functions written beside its solver (``loop_fns``; the
+frame's in ``frame_step.py``, the window LM's in ``lm.py``, global BA's
+in ``parallel/global_ba.py``, Jacobi-PCG's in ``pcg.py``, the pose
+graph's in ``generic.py``): the head takes the inputs to the loop's state
+after its first ``k`` attempts (``lm._attempt``, masked by the loop's
+condition), the chunk makes ``k`` more, the tail gives the outputs.
+Attempts made after the loop has ended change no bit, so the result does
+not depend on ``k``.  Two executors run a program, and ``loop`` chooses
+by the device:
 
-- the head: from the inputs to the loop's state after its first ``CHUNK``
-  attempts (``lm._attempt``, branch-free, masked by the loop's condition);
-- the chunk: ``CHUNK`` more attempts, written back into the same state;
-- the tail: from the state to the outputs, packed into one buffer.
-
-A call is then one host-to-device copy of the inputs from one pinned
-staging buffer (or device-to-device copies of device tensors), a replay
-of the head, a one-byte read of the loop's condition after it and after
-each replay of the chunk, a replay of the tail and one device-to-host
-copy of the outputs; what the caller keeps on the device (global BA's
-poses) is copied out of the state into the caller's tensors.  Attempts
-replayed after the loop has ended change no bit, so the result does not
-depend on ``CHUNK``.  Each loop's head, chunk, tail, key and entry point
-sit beside the loop: the window LM's here (``solve_window``), the
-frame's in ``frame_step.py``, global BA's in ``parallel/global_ba.py``
-(``solve_graphed``) and Jacobi-PCG's in ``pcg.py`` (``pcg_solve_graphed``,
-with its own chunk ``pcg.CHUNK``).
+- ``LoopGraph``, on the card: three graphs captured once per key, the key
+  being what ``jax.jit`` would hold static (the static arguments, the
+  shapes, the dtype and the device).  A call is one host-to-device copy
+  of the inputs from one pinned staging buffer (or device-to-device
+  copies of device tensors), a replay of the head, a one-byte read of the
+  loop's condition after it and after each replay of the chunk, a replay
+  of the tail and one device-to-host copy of the outputs; what the caller
+  keeps on the device (global BA's poses) is copied out of the state into
+  the caller's tensors;
+- ``EagerLoop``, op by op with the same host reads: the CPU's executor,
+  and on the card the one for a program a graph cannot hold (a damped
+  solve by PCG, whose own loop reads the host; a ``torch.distributed``
+  group), which its solver takes itself, and a capture's twin for
+  verification.
 
 A key is captured once per process and kept while it is used: the route
 pays off where calls repeat a shape, as ``jax.jit``'s cache does.  A
@@ -38,37 +43,30 @@ tracker) is not stopped by it.  Each thread's first capture on a device in
 a dtype is preceded by one eager run of the head with no attempt and of
 the tail on the capture stream, which creates the library handles and
 workspaces that must not be created inside a capture; the λ-attempts,
-and so the ``gj_solve`` kernel, run only in replays.
-``ops.linsolve.gj_solve`` counts the launches a capture records
-(``gj_solve.captured``); each replay adds them to ``gj_solve.launches``;
-so does ``imu.preintegrate_kernel``, once in every frame key's head, and
-``window.imu_factor_kernel``, once an assembly: 1 + ``CHUNK`` in a frame
-key's head (``lm.start``'s and the attempts'), ``CHUNK`` in its chunk and
-one in its tail where it marginalizes the oldest frame.
+and so the ``gj_solve`` kernel, run only in replays.  Every kernel wrapper
+registered with ``ops._build.counted`` counts the launches a capture
+records (``.captured``), and each replay adds them to its ``.launches``:
+``imu.preintegrate_kernel`` once in every frame key's head,
+``window.imu_factor_kernel`` once an assembly (1 + ``CHUNK`` in a frame
+key's head, ``CHUNK`` in its chunk, one in its tail where it marginalizes
+the oldest frame).
 
 A ``ProgramGraph`` is the one-shot counterpart, for a jitted function
 with no loop in it (the tracker's programs, ``features/tracker.py``): a
 pinned input slab, one graph, one replay a call and one device-to-host
 copy of its packed outputs; what the function keeps on the device (the
 tracker's image) is copied into the caller's tensors after the replay.
-It keeps ``LoopGraph``'s rules: keys hold what ``jax.jit`` holds static,
-capture runs on its own stream in ``thread_local`` mode after the
-thread's one eager warm-up on a device and dtype, and there is no
-fallback.  ``run_eagerly`` runs the same function without a graph: the
-CPU's path.  Captures are serialised by one lock (a thread that captures
-calls ``torch.cuda.synchronize()`` on entry, which must not meet another
-thread's capture); replays are not.  Every kernel wrapper in
-``COUNTED`` counts the launches a capture records (``.captured``), and
-each replay adds them to its ``.launches``.
+It keeps ``LoopGraph``'s rules, and ``run_eagerly`` runs the same
+function without a graph: the CPU's path.  Captures are serialised by
+one lock (a thread that captures calls ``torch.cuda.synchronize()`` on
+entry, which must not meet another thread's capture); replays are not.
 
-Nothing here runs on the CPU: the CPU runs the same functions eagerly
-(``lm.solve_window``, ``frame_step.frame_step``, ``run_eagerly``).
-
-The host's part of a call is timed by spans (``trace.py``): a slab's
-upload (``graph.upload``), each replay's enqueue (``graph.replay``), the
-host blocked on a condition read or an output readback (``graph.wait``)
-and a key's warm-up and capture (``graph.capture``, the interval that
-``STATS["capture_s"]`` sums).
+The host's part of a graph's call is timed by spans (``trace.py``): a
+slab's upload (``graph.upload``), each replay's enqueue
+(``graph.replay``), the host blocked on a condition read or an output
+readback (``graph.wait``) and a key's warm-up and capture
+(``graph.capture``, the interval that ``STATS["capture_s"]`` sums).  The
+eager executors open no span and add nothing to ``STATS``.
 """
 from __future__ import annotations
 
@@ -78,10 +76,8 @@ from collections import Counter
 import numpy as np
 import torch
 
-from .. import imu, trace
-from ..ops import _build, linsolve, ransac
-from . import lm
-from . import window as W
+from .. import trace
+from ..ops import _build
 
 # λ-attempts between two host reads of the loop's condition (and in the
 # head).  Chosen on the card from K in {1, 2, 4, 8} (PERF.md §6).
@@ -102,11 +98,6 @@ POOL_BUDGET = 8 << 30
 # ``global_ba.solve``) and the graphed PCG solves with their CG iterations
 # (pcg_solves, pcg_iterations).  ``reset_stats`` zeroes them.
 STATS: Counter = Counter()
-
-# The kernel wrappers whose launches a graph holds: each counts the
-# launches it records into a capture (.captured) and its launches (.launches).
-COUNTED = (linsolve.gj_solve, ransac.sweep, ransac.refit, ransac.refit_best,
-           imu.preintegrate_kernel, linsolve.cholesky_solve, W.imu_factor_kernel)
 
 _NP = {torch.float32: np.float32, torch.float64: np.float64,
        torch.bool: np.bool_, torch.int64: np.int64}
@@ -220,13 +211,13 @@ def _capture_stream(device):
         return _STREAMS[device]
 
 
-def _captured() -> list[int]:
-    return [fn.captured for fn in COUNTED]
+def _captured() -> dict:
+    return {fn: fn.captured for fn in _build.COUNTED}
 
 
-def _replayed(counts) -> None:
+def _replayed(counts: dict) -> None:
     """Add a replay's launches to each counted wrapper."""
-    for fn, n in zip(COUNTED, counts):
+    for fn, n in counts.items():
         fn.launches += n
 
 
@@ -268,13 +259,13 @@ def _capture_key(device, dtypes: tuple, warm_up, body) -> int:
 
 def _capture(fn, stream, pool=None):
     """One graph of ``fn()`` on ``stream``: (the graph, ``fn``'s output,
-    each COUNTED wrapper's launches the graph holds)."""
+    {counted wrapper: its launches the graph holds})."""
     g = torch.cuda.CUDAGraph()
     before = _captured()
     with torch.cuda.graph(g, pool=pool, stream=stream, capture_error_mode="thread_local"):
         out = fn()
     STATS["captures"] += 1
-    return g, out, [a - b for a, b in zip(_captured(), before)]
+    return g, out, {fn: n - before.get(fn, 0) for fn, n in _captured().items()}
 
 
 def _pack(outs) -> tuple:
@@ -317,18 +308,19 @@ class LoopGraph:
     never change.  ``kept(carry, aux)`` names the tensors a call hands back
     on the device (None: none); ``k`` is the attempts the head and the chunk
     make.  After a call, ``attempts`` and ``reads`` are the attempts its
-    replays made and its host reads of the condition."""
+    replays made and its host reads of the condition.  Refuses a device
+    other than CUDA."""
 
     def __init__(self, key, specs, head, chunk, tail, device, kept, k: int):
-        if k < 1:
-            raise ValueError(f"a LoopGraph's chunk must be at least 1, not {k}")
-        self.key = key
-        self.chunk = k            # the attempts the head and the chunk make
         self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"a LoopGraph runs on a CUDA device, not {self.device}")
+        self.key = key
+        self.chunk = _chunk(k)    # the attempts the head and the chunk make
         self.inputs = Slab(specs, self.device)
         self._fns = (head, chunk, tail, kept)
         self.graphs = None
-        self.launches = {}        # each COUNTED wrapper's launches a graph holds
+        self.launches = {}        # {name: {counted wrapper: launches}} of each graph
         self.pool_bytes = 0
         self.attempts = self.reads = 0
 
@@ -396,11 +388,99 @@ class LoopGraph:
         return self.out.read()
 
 
+def loop_fns(begin, advance, live, tail):
+    """A loop program's head and chunk from its parts, with its tail:
+    ``begin(inputs) -> (carry, aux)``, ``advance(carry, aux, k)`` making k
+    attempts, ``live(carry, aux)`` the loop's condition (a 0-d bool) and
+    ``tail(carry, aux)`` the outputs."""
+    def head(views, k):
+        carry, aux = begin(views)
+        carry = advance(carry, aux, k)
+        return carry, aux, live(carry, aux)
+
+    def chunk(carry, aux, k):
+        carry = advance(carry, aux, k)
+        return carry, live(carry, aux)
+
+    return head, chunk, tail
+
+
+def _chunk(k) -> int:
+    """The attempts a head and a chunk make: ``k``, or ``CHUNK`` for None."""
+    k = CHUNK if k is None else k
+    if k < 1:
+        raise ValueError(f"a loop's chunk must be at least 1, not {k}")
+    return k
+
+
 def loop_graph(key, specs, head, chunk, tail, device, kept=None, k=None) -> LoopGraph:
     """The cached ``LoopGraph`` of ``key`` at ``k`` attempts a chunk (the
     current ``CHUNK`` without it), made on first use."""
-    k = CHUNK if k is None else k
+    k = _chunk(k)
     return _cached((key, k), lambda: LoopGraph(key, specs, head, chunk, tail, device, kept, k))
+
+
+class EagerLoop:
+    """``LoopGraph``'s twin with no capture: it takes what a ``LoopGraph``
+    takes and runs the program op by op on its device, the head once,
+    then the chunk while the condition holds, with a host read of the
+    condition after the head and after each chunk, then the tail.  Its
+    inputs load as a ``LoopGraph``'s do (``inputs.upload``, ``inputs.load``:
+    the loop is its own ``inputs``): host arrays become tensors of their
+    specs (``convert.to_tensor``'s copy), device tensors are taken as they
+    are.  ``attempts`` and ``reads`` count as a ``LoopGraph``'s do; nothing
+    is added to ``STATS``, and nothing is cached under ``key``."""
+
+    def __init__(self, key, specs, head, chunk, tail, device, kept=None, k=None):
+        self.chunk = _chunk(k)
+        self.device = torch.device(device)
+        self.specs = list(specs)
+        self.views = [None] * len(self.specs)
+        self._fns = (head, chunk, tail, kept)
+        self.attempts = self.reads = 0
+
+    @property
+    def inputs(self):
+        return self
+
+    def upload(self, arrays) -> None:
+        for i, a in enumerate(arrays):
+            self.views[i] = torch.as_tensor(np.array(a), dtype=self.specs[i][1],
+                                            device=self.device)
+
+    def load(self, tensors, start: int = 0) -> None:
+        for i, t in enumerate(tensors, start):
+            self.views[i] = t
+
+    def run_tensors(self, keep=()) -> list[torch.Tensor]:
+        """Run the loop on the inputs loaded last; copies the ``kept``
+        tensors into ``keep`` and returns the tail's outputs as tensors on
+        their device."""
+        head, chunk, tail, kept = self._fns
+        self.attempts, self.reads = self.chunk, 1
+        carry, aux, live = head(self.views, self.chunk)
+        while bool(live):
+            carry, live = chunk(carry, aux, self.chunk)
+            self.attempts += self.chunk
+            self.reads += 1
+        out = tail(carry, aux)
+        for dst, src in zip(keep, kept(carry, aux) if kept else []):
+            dst.copy_(src)
+        return out
+
+    def run(self, keep=()) -> list[np.ndarray]:
+        """``LoopGraph.run``: ``run_tensors`` with the outputs as float64
+        host arrays."""
+        return [t.to(torch.float64).cpu().numpy() for t in self.run_tensors(keep)]
+
+
+def loop(key, specs, head, chunk, tail, device, kept=None, k=None):
+    """The executor of a loop program on ``device``: the cached
+    ``LoopGraph`` on a CUDA device, an ``EagerLoop`` elsewhere.  Takes what
+    both take."""
+    if torch.device(device).type == "cuda":
+        return loop_graph(key, specs, head, chunk, tail, device, kept, k)
+    return EagerLoop(key, specs, head, chunk, tail, device, kept, k)
 
 
 class ProgramGraph:
@@ -417,7 +497,7 @@ class ProgramGraph:
         self.inputs = Slab(specs, self.device)
         self.fn = fn
         self.graph = None
-        self.launches = []        # each COUNTED wrapper's launches the graph holds
+        self.launches = {}        # {counted wrapper: launches} the graph holds
         self.pool_bytes = 0
         self._lock = threading.Lock()
 
@@ -475,59 +555,3 @@ def run_eagerly(specs, fn, host=(), device=(), keep=(), on=None) -> list[np.ndar
     for dst, src in zip(keep, kept):
         dst.copy_(src)
     return [t.cpu().numpy() for t in outs]
-
-
-def _unflatten(template, it):
-    if isinstance(template, tuple):
-        parts = [_unflatten(t, it) for t in template]
-        return type(template)(*parts) if hasattr(template, "_fields") else tuple(parts)
-    return next(it)
-
-
-def window_fns(tree, max_iter: int, fix_ext: bool, loss_delta: float,
-               n_obs: int | None):
-    """The head, chunk and tail of a window solve's ``LoopGraph``; the
-    inputs are the leaves of ``tree`` = (states, factors)."""
-    def head(views, k):
-        st, ff = _unflatten(tree, iter(views))
-        s, p, chi2_init = lm.start(st, ff, max_iter, fix_ext, loss_delta, n_obs)
-        s = lm.attempts(s, p, k)
-        return s, (p, chi2_init), lm.live(s, max_iter)
-
-    def step(s, aux, k):
-        s = lm.attempts(s, aux[0], k)
-        return s, lm.live(s, max_iter)
-
-    def tail(s, aux):
-        return [*s.states, s.b_prior, s.err_prior, s.chi, aux[1], s.it, s.lam]
-
-    return head, step, tail
-
-
-def solve_window(states, f, max_iter: int = 10, fix_ext: bool = True,
-                 loss_delta: float = 1.0, n_obs: int | None = None):
-    """``lm.solve_window`` on the card from captured graphs: device tensors
-    in (``states``, ``f``, one copy each into the key's inputs), host
-    float64 arrays out.  Returns (states, b_prior, err_prior, stats) with
-    stats chi2, iterations (an int), lam and chi2_init."""
-    tree = (states, f)
-    leaves = _leaves(tree)
-    device = leaves[0].device
-    specs = [(tuple(t.shape), t.dtype) for t in leaves]
-    key = ("solve_window", int(max_iter), bool(fix_ext), float(loss_delta),
-           n_obs, tuple(specs), device)
-    g = loop_graph(key, specs, *window_fns(tree, max_iter, fix_ext, loss_delta, n_obs),
-                   device)
-    g.inputs.load(leaves)
-    out = g.run()
-    n = len(states)
-    b_prior, err_prior, chi, chi2_init, it, lam = out[n:]
-    return (type(states)(*out[:n]), b_prior, err_prior,
-            dict(chi2=chi, iterations=int(it), lam=lam, chi2_init=chi2_init))
-
-
-def require_cuda(device, what: str) -> None:
-    """A graphed entry point's guard: it runs on a CUDA device, never
-    eagerly elsewhere."""
-    if device.type != "cuda":
-        raise ValueError(f"{what} runs on a CUDA device, not {device}")

@@ -7,10 +7,10 @@ The JAX ``lax.while_loop`` body becomes ``_attempt``: one λ-attempt as a
 transition of the device-resident ``LMState``, its ``lax.cond``
 accept/reject turned into ``torch.where`` selects on every leaf and every
 update gated by the loop's condition, so an attempt made after the loop
-has ended changes no bit.  ``solve_window`` runs ``chunk`` attempts
-between host reads of that condition; ``solver/graph.py`` captures the
-same attempts as CUDA graphs and replays them, which is how the estimator
-runs them on the card.
+has ended changes no bit.  ``solve_window`` makes a solve one program of
+those attempts and hands it to ``solver/graph.py``'s executor: captured
+CUDA graphs replayed on the card, the same functions op by op on the
+CPU.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from . import graph
 from . import window as W
 from ..ops import linsolve
 from ..parallel.collective import _psum_hi, all_reduce_system
@@ -182,39 +183,75 @@ def attempts(s: LMState, p: Problem, k: int) -> LMState:
     return s
 
 
+def _unflatten(template, it):
+    if isinstance(template, tuple):
+        parts = [_unflatten(t, it) for t in template]
+        return type(template)(*parts) if hasattr(template, "_fields") else tuple(parts)
+    return next(it)
+
+
+def solve_with(loop, states: W.WindowStates, f: W.WindowFactors, max_iter: int = 10,
+               fix_ext: bool = True, loss_delta: float = 1.0, n_obs: int | None = None,
+               group=None, chunk: int | None = None):
+    """``solve_window`` on the executor ``loop`` (``graph.loop``, or
+    ``graph.EagerLoop``, the card's twin of a capture), ``chunk``
+    attempts between two reads of the loop's condition (``graph.CHUNK``
+    without it)."""
+    tree = (states, f)
+
+    def begin(views):
+        s, p, chi2_init = start(*_unflatten(tree, iter(views)), max_iter, fix_ext, loss_delta,
+                                n_obs, group, wire)
+        return s, (p, chi2_init)
+
+    leaves = graph._leaves(tree)
+    device = leaves[0].device
+    specs = [(tuple(t.shape), t.dtype) for t in leaves]
+    key = ("solve_window", int(max_iter), bool(fix_ext), float(loss_delta),
+           n_obs, tuple(specs), device)
+    wire = []
+    scalar = states.Ps.new_empty(())
+    out = [*map(torch.empty_like, (*states, f.b_prior, f.err_prior, scalar, scalar, scalar)),
+           torch.empty((), dtype=torch.int64, device=device)]
+    fns = graph.loop_fns(begin, lambda s, aux, k: attempts(s, aux[0], k),
+                         lambda s, aux: live(s, max_iter), lambda s, aux: [s.it])
+    g = loop(key, specs, *fns, device, k=chunk,
+             kept=lambda s, aux: [*s.states, s.b_prior, s.err_prior, s.chi, aux[1], s.lam, s.it])
+    g.inputs.load(leaves)
+    g.run(keep=out)
+    n = len(states)
+    b_prior, err_prior, chi, chi2_init, lam, it = out[n:]
+    stats = dict(chi2=chi, iterations=it, lam=lam, chi2_init=chi2_init,
+                 attempts=g.attempts, reads=g.reads,
+                 allreduces=len(wire), allreduce_bytes=wire[-1] if wire else 0)
+    return type(states)(*out[:n]), b_prior, err_prior, stats
+
+
 def solve_window(states: W.WindowStates, f: W.WindowFactors,
                  max_iter: int = 10, fix_ext: bool = True,
                  loss_delta: float = 1.0, n_obs: int | None = None,
-                 group=None, chunk: int = 1):
+                 group=None, chunk: int | None = None):
     """Run LM on the window problem.  Returns (states, b_prior, err_prior,
-    stats dict).  b_prior/err_prior carry the first-order prior update
-    accumulated over accepted steps (problem.cc:466-478).  n_obs: optional
-    live-observation cap — see window.assemble.
+    stats dict), all on the problem's device.  b_prior/err_prior carry the
+    first-order prior update accumulated over accepted steps
+    (problem.cc:466-478).  n_obs: optional live-observation cap — see
+    window.assemble.
 
-    The attempts run eagerly, ``chunk`` of them between two host reads of
-    the loop's condition; attempts past the end change nothing, so every
-    ``chunk`` gives the same bits.  ``solver/graph.py`` replays the same
-    attempts from captured CUDA graphs (the estimator's path on the card).
-    stats: chi2, lam, chi2_init and ``iterations`` as 0-d device tensors,
-    ``attempts`` (made, wasted ones included) and ``reads`` as ints.
+    One program on the executor ``graph.loop`` chooses (``solve_with``):
+    the key's captured graphs on the card, the eager loop on the CPU;
+    ``chunk`` attempts (``graph.CHUNK`` without it) between two host
+    reads of the loop's condition.  Attempts past the end change nothing,
+    so every ``chunk`` gives the same bits.  stats: chi2, lam, chi2_init
+    and ``iterations`` as 0-d device tensors, ``attempts`` (made, wasted
+    ones included) and ``reads`` as ints.
 
     ``group``: a ``torch.distributed`` process group over which the
-    problem's features are split (``parallel.sharded.shard_problem``), a
-    separate entry point that always runs eagerly.  Each assembly's
-    reduced system, chi² and the gain ratio's landmark terms are then
-    summed over its ranks in ONE all_reduce inside the attempt; the damped
-    pose solve is replicated, so every rank takes the same decisions.
-    stats count the all_reduces and their bytes (0 without a group)."""
-    s, p, chi2_init = start(states, f, max_iter, fix_ext, loss_delta, n_obs, group)
-    n_att = reads = 0
-    while True:
-        s = attempts(s, p, chunk)
-        n_att += chunk
-        reads += 1
-        if not bool(live(s, max_iter)):
-            break
-    wire = p.wire
-    stats = dict(chi2=s.chi, iterations=s.it, lam=s.lam, chi2_init=chi2_init,
-                 attempts=n_att, reads=reads,
-                 allreduces=len(wire), allreduce_bytes=wire[-1] if wire else 0)
-    return s.states, s.b_prior, s.err_prior, stats
+    problem's features are split (``parallel.sharded.shard_problem``); a
+    group's collectives cannot be captured, so the loop then runs eagerly.
+    Each assembly's reduced system, chi² and the gain ratio's landmark
+    terms are then summed over its ranks in ONE all_reduce inside the
+    attempt; the damped pose solve is replicated, so every rank takes the
+    same decisions.  stats count the all_reduces and their bytes (0
+    without a group)."""
+    return solve_with(graph.loop if group is None else graph.EagerLoop, states, f, max_iter,
+                      fix_ext, loss_delta, n_obs, group, chunk)

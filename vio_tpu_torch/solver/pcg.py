@@ -6,11 +6,11 @@ problem.cc:580-610 PCGSolver — Jacobi preconditioner, stop at
 ``_iteration``: one CG step as a transition of the device-resident carry
 (x, r, p, rz, k), masked by the loop's condition (``live``, the JAX
 ``cond``), so that an iteration made after the loop has ended changes no
-bit.  On a CUDA tensor ``pcg_solve`` replays the key's captured graphs
-(``pcg_solve_graphed``, on ``graph.LoopGraph``); on the CPU
-``pcg_solve_eager`` runs the same iterations op by op.  Either reads the
-condition once per ``CHUNK`` iterations, and the result does not depend
-on ``CHUNK``.
+bit.  A solve is one program of those iterations (``graph_fns``) on
+one of ``solver/graph.py``'s executors (``solve_with``): on a CUDA tensor
+``pcg_solve`` replays the key's captured graphs; on the CPU the eager
+loop runs the same iterations op by op.  Either reads the condition once
+per ``CHUNK`` iterations, and the result does not depend on ``CHUNK``.
 """
 from __future__ import annotations
 
@@ -84,38 +84,15 @@ def iterations(c: CG, sy: System, k: int) -> CG:
     return c
 
 
-def pcg_solve_eager(H, b, max_iter: int = 0, rtol: float = 1e-6):
-    """``pcg_solve`` op by op on the inputs' device: ``CHUNK`` iterations
-    between two host reads of the loop's condition.  Returns (x, the
-    iterations made as an int)."""
-    c, sy = start(H, b, rtol, max_iter)
-    n = 0
-    while n < sy.iters:
-        c = iterations(c, sy, CHUNK)
-        n += CHUNK
-        if not bool(live(c, sy)):
-            break
-    return c.x, int(c.k)
-
-
 def graph_fns(max_iter: int):
-    """The head, chunk and tail of a solve's ``graph.LoopGraph``
+    """The head, chunk and tail of a solve's loop
     (``vio_tpu/solver/pcg.py:19-52`` under ``jax.jit``); the inputs are
     rtol (0-d), H and b."""
-    def head(views, k):
+    def begin(views):
         rtol, H, b = views
-        c, sy = start(H, b, rtol, max_iter)
-        c = iterations(c, sy, k)
-        return c, sy, live(c, sy)
+        return start(H, b, rtol, max_iter)
 
-    def step(c, sy, k):
-        c = iterations(c, sy, k)
-        return c, live(c, sy)
-
-    def tail(c, sy):
-        return [c.k]
-
-    return head, step, tail
+    return graph.loop_fns(begin, iterations, live, lambda c, sy: [c.k])
 
 
 def graph_key(H, b, max_iter: int) -> tuple:
@@ -126,31 +103,31 @@ def graph_key(H, b, max_iter: int) -> tuple:
     return ("pcg", int(max_iter), specs, H.device)
 
 
-def pcg_solve_graphed(H, b, max_iter: int = 0, rtol: float = 1e-6):
-    """``pcg_solve`` on the card from the captured graphs of ``graph_key``
-    (rtol is an input): H and b copied into the key's inputs on the device,
-    ``CHUNK`` iterations between two host reads of the condition.  Returns
-    (x, a fresh device tensor; the iterations, an int).  Raises on CPU
-    tensors; there is no eager fallback."""
-    graph.require_cuda(H.device, "pcg.pcg_solve_graphed")
+def solve_with(loop, H, b, max_iter: int = 0, rtol: float = 1e-6):
+    """``pcg_solve`` on the executor ``loop`` (``graph.loop``, or
+    ``graph.EagerLoop``, the card's twin of a capture), rtol an input of
+    the key's, ``CHUNK`` iterations between two host reads of the
+    condition.  Returns (x, a fresh device tensor; the iterations, an
+    int)."""
     key = graph_key(H, b, max_iter)
-    g = graph.loop_graph(key, list(key[2]), *graph_fns(max_iter), H.device,
-                         kept=lambda c, sy: [c.x], k=CHUNK)
+    g = loop(key, list(key[2]), *graph_fns(max_iter), H.device,
+             kept=lambda c, sy: [c.x], k=CHUNK)
     g.inputs.upload([rtol])
     g.inputs.load([H, b], start=1)
     x = torch.empty_like(b)
     (k,) = g.run(keep=[x])
-    graph.STATS["pcg_solves"] += 1
-    graph.STATS["pcg_iterations"] += int(k)
     return x, int(k)
 
 
 def pcg_solve(H, b, max_iter: int = 0, rtol: float = 1e-6):
     """Solve H x = b (H SPD) with Jacobi-PCG.  max_iter=0 → 2·dim like the
-    reference's default (problem.cc:445).  Returns (x, iterations).  On a
-    CUDA tensor ``pcg_solve_graphed`` (graphs keyed like ``jax.jit``:
-    ``max_iter`` and the shapes; ``rtol`` is an input), x on the device;
-    on the CPU ``pcg_solve_eager``."""
+    reference's default (problem.cc:445).  Returns (x, iterations), x on
+    H's device.  The executor is ``graph.loop``'s: on a CUDA tensor the
+    key's captured graphs (keyed like ``jax.jit``: ``max_iter`` and the
+    shapes; ``rtol`` is an input), counted in ``graph.STATS``
+    (``pcg_solves``, ``pcg_iterations``); on the CPU the eager loop."""
+    x, k = solve_with(graph.loop, H, b, max_iter, rtol)
     if H.is_cuda:
-        return pcg_solve_graphed(H, b, max_iter, rtol)
-    return pcg_solve_eager(H, b, max_iter, rtol)
+        graph.STATS["pcg_solves"] += 1
+        graph.STATS["pcg_iterations"] += k
+    return x, k

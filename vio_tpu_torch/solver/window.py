@@ -186,6 +186,7 @@ def imu_factor_reference(states: WindowStates, f: WindowFactors, infos, Hpp, bp,
     return Hpp, bp, chi
 
 
+@_build.counted
 def imu_factor_kernel(terms: factors.ImuFactorTerms, g, Ps, Qs, Vs, Bas, Bgs,
                       imu_valid, infos, Hpp, bp, chi) -> None:
     """``imu_factor_reference`` as one launch of ``csrc/imu_factor.cu`` on
@@ -232,10 +233,6 @@ def imu_factor_kernel(terms: factors.ImuFactorTerms, g, Ps, Qs, Vs, Bas, Bgs,
         imu_factor_kernel.captured += 1   # recorded, not run: each replay launches it
     else:
         imu_factor_kernel.launches += 1
-
-
-imu_factor_kernel.launches = 0   # launches on the card, a graph's replays included
-imu_factor_kernel.captured = 0   # launches recorded into CUDA graphs (solver/graph.py)
 
 
 def imu_factor(states: WindowStates, f: WindowFactors, infos, Hpp, bp, chi):
